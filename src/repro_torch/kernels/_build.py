@@ -46,7 +46,7 @@ def nvcc() -> str:
         if cand and Path(cand).is_file():
             return cand
     raise RuntimeError(
-        "nvcc not found: the attention kernels are CUDA C++ for sm_90a and "
+        "nvcc not found: the kernels are CUDA C++ for sm_90a and "
         "build only where the CUDA toolkit is installed"
     )
 

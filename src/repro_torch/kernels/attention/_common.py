@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import torch
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.kernels._common import DTYPE_CODES
+
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -31,11 +32,3 @@ def check_operands(name: str, tensors: dict[str, torch.Tensor]) -> None:
                 "with 16-byte aligned rows"
             )
 
-
-def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels: 16-byte vector loads converted to
+// Helpers shared by the kernels: 16-byte vector loads converted to
 // float, and scalar conversions for the two element types the kernels take
 // (float32 and bfloat16).
 #pragma once

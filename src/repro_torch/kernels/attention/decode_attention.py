@@ -14,10 +14,9 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import DTYPE_CODES, raise_on_error, stream_handle
 from repro_torch.kernels.attention import ref
-from repro_torch.kernels.attention._common import (
-    DTYPE_CODES, check_operands, raise_on_error, stream_handle,
-)
+from repro_torch.kernels.attention._common import check_operands
 
 MAX_GROUP = 8          # query heads per kv head the kernel keeps in registers
 TARGET_BLOCKS = 264    # two blocks per SM of an H100 (132 SMs)

@@ -13,10 +13,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import DTYPE_CODES, raise_on_error, stream_handle
 from repro_torch.kernels.attention import ref
-from repro_torch.kernels.attention._common import (
-    DTYPE_CODES, check_operands, raise_on_error, stream_handle,
-)
+from repro_torch.kernels.attention._common import check_operands
 
 launches = 0
 _fn = None

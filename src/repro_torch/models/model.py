@@ -1,8 +1,8 @@
-"""Model API (port of ``repro/models/model.py`` for dense configs).
+"""Model API (port of ``repro/models/model.py`` for the dense and ssm families).
 
 ``build_model(cfg)`` returns a ``ModelApi`` with the entry points the
-serving engine uses.  Only the dense family is ported; the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+serving engine uses.  The dense and ssm families are ported; the others
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ from repro_torch.models.params import init_params
 
 _NOT_PORTED = {
     "moe": "ROADMAP A5 (MoE and sliding windows)",
-    "ssm": "ROADMAP A6 (the ssm family and the SSD kernel)",
     "hybrid": "ROADMAP A7 (hybrid and enc-dec families)",
     "encdec": "ROADMAP A7 (hybrid and enc-dec families)",
 }
@@ -37,7 +36,7 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.arch_type!r} family is not ported yet; "
             f"see {_NOT_PORTED[cfg.arch_type]}"

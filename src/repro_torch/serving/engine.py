@@ -284,7 +284,14 @@ class FleetEngine:
 
 
 def _scatter_slot(caches, caches1, slot: int):
-    """Write a batch-1 cache tree into slot ``slot`` of the batched cache, in place."""
+    """Write a batch-1 cache tree into slot ``slot`` of the batched cache, in place.
+
+    Batch is axis 0 of every leaf (attention k/v, ssm conv window and
+    state); ``copy_`` casts to the batched leaf's dtype, as the reference's
+    ``.astype(full.dtype)`` does.  Shapes that differ past axis 0 raise
+    ``ValueError``, as in the reference: among them the conv tail of an ssm
+    prompt shorter than ``ssm_conv_width - 1`` tokens.
+    """
 
     def upd(full, one):
         if full.ndim != one.ndim or one.shape[0] != 1 or full.shape[1:] != one.shape[1:]:

@@ -9,9 +9,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config
 from repro_torch.kernels.attention import decode_attention as da
 from repro_torch.kernels.attention import flash_attention as fa
 from repro_torch.kernels.attention import ops, ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.kernels.ssd import ssd_scan
+from repro_torch.models.model import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +91,103 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     cache = _randn(card, (2, 64, 2, 128), torch.bfloat16)
     with pytest.raises(ValueError, match="group"):
         da.decode_attention(qd, cache, cache, 10)
+
+
+# The SSD scan: tests/test_kernels.py's tolerances, plus one bfloat16 step of
+# the output's magnitude (2^-7 relative), since the kernel and the plain
+# version each round a float32 y to bfloat16 once and may land on the two
+# sides of a rounding boundary; at N = 128 |y| reaches ~100, where one step
+# is 0.5.
+SSD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+SSD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype, h0=False):
+    x = (torch.randn((b, s, h, p), generator=gen, device="cuda") * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.3)
+    Bm, Cm = (_randn(gen, (b, s, n), dtype) for _ in range(2))
+    D = torch.ones((h,), device="cuda")
+    h0 = torch.randn((b, h, p, n), generator=gen, device="cuda") if h0 else None
+    return x, dt, A, Bm, Cm, D, h0
+
+
+def _assert_ssd_close(got, want, dtype):
+    (gy, gh), (wy, wh) = got, want
+    assert gy.dtype == dtype and gh.dtype == torch.float32
+    torch.testing.assert_close(gy.float(), wy.float(), atol=SSD_ATOL[dtype], rtol=SSD_RTOL[dtype])
+    torch.testing.assert_close(gh, wh, atol=SSD_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", [
+    # (b, s, h, p, n, chunk, h0)
+    (2, 128, 4, 32, 16, 32, False),
+    (1, 100, 2, 32, 16, 32, False),    # ragged last chunk
+    (2, 77, 8, 16, 8, 16, True),       # ragged, with an initial state
+    (1, 1, 2, 64, 32, 64, True),       # one token
+    (3, 200, 3, 64, 24, 128, False),   # N not a multiple of 16
+])
+def test_ssd_kernel_matches_plain(case, dtype, card):
+    b, s, h, p, n, chunk, with_h0 = case
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(card, b, s, h, p, n, dtype, with_h0)
+    before = ssd_scan.launches
+    got = ssd_ops.ssd(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    _assert_ssd_close(got, ssd_ref.ssd_naive(x, dt, A, Bm, Cm, D, h0=h0), dtype)
+
+
+@pytest.mark.parametrize("s", [128, 700])
+def test_ssd_kernel_at_mamba_width(s, card):
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(card, 1, s, 32, 64, 128, torch.bfloat16)
+    _assert_ssd_close(ssd_ops.ssd(x, dt, A, Bm, Cm, D, chunk=128),
+                      ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128), torch.bfloat16)
+
+
+def test_ssd_kernel_reads_strided_views(card):
+    """x, B and C as the model hands them: column slices of one projection."""
+    b, s, h, p, n = 2, 90, 4, 32, 16
+    proj = torch.randn((b, s, h * p + 2 * n), generator=card, device="cuda") * 0.5
+    x = proj[..., :h * p].reshape(b, s, h, p)
+    Bm, Cm = proj[..., h * p:h * p + n], proj[..., h * p + n:]
+    _, dt, A, _, _, D, _ = _ssd_inputs(card, b, s, h, p, n, torch.float32)
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    _assert_ssd_close(ssd_scan.ssd(x, dt, A, Bm, Cm, D),
+                      ssd_ref.ssd_naive(x, dt, A, Bm, Cm, D), torch.float32)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(card, 1, 64, 2, 32, 16, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan.ssd(x.half(), dt, A, Bm.half(), Cm.half(), D)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan.ssd(x, dt, A, Bm.bfloat16(), Cm, D)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan.ssd(torch.cat([x, x[..., :16]], -1), dt, A, Bm, Cm, D)
+    big = torch.zeros((1, 64, 256), device="cuda")
+    with pytest.raises(ValueError, match="state dim"):
+        ssd_scan.ssd(x, dt, A, big, big, D)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=256)
+    wide = torch.zeros((1, 64, 32), device="cuda")
+    with pytest.raises(ValueError, match="strided last dim"):
+        ssd_scan.ssd(x, dt, A, wide[..., ::2], Cm, D)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_scan.ssd(x, dt[:, :10], A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=torch.zeros((1, 2, 32, 16)))
+
+
+def test_mamba_prefill_goes_through_the_kernel(card):
+    cfg = get_config("mamba2-370m", reduced=True)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=card, device="cuda")
+    before = ssd_scan.launches
+    got, caches = api.prefill(params, {"tokens": tokens}, 48)
+    assert ssd_scan.launches == before + cfg.num_layers
+    want, ref_caches = api.prefill(params, {"tokens": tokens}, 48, impl="ref")
+    assert ssd_scan.launches == before + cfg.num_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for c, r in zip(caches["blocks"], ref_caches["blocks"]):
+        torch.testing.assert_close(c["h"], r["h"], atol=1e-4, rtol=0)

@@ -1,6 +1,8 @@
-"""The port's FleetEngine against the JAX package's on one scenario: the
-same fleet, float32 parameters and submissions must give the same greedy
-token streams, allocations and metrics."""
+"""The port's FleetEngine against the JAX package's: the same fleet, float32
+parameters and submissions must give the same greedy token streams,
+allocations and metrics.  Two fleets: dense agents (granite-8b, qwen2-vl-2b),
+and the reference's own two-agent engine fleet (tests/test_serving.py:
+minitron-4b and mamba2-370m)."""
 import math
 
 import pytest
@@ -23,22 +25,27 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import AgentRuntime, FleetEngine
 
-AGENTS = (("nlp", "granite-8b", 100.0, 0.2, 1), ("vision", "qwen2-vl-2b", 20.0, 0.3, 2))
+# (name, arch, AgentSpec fields after the name)
+AGENTS = (("nlp", "granite-8b", 100.0, 100.0, 0.2, 1),
+          ("vision", "qwen2-vl-2b", 100.0, 20.0, 0.3, 2))
+# tests/test_serving.py::_fleet_2 and ::_engine
+AGENTS_2 = (("fast", "minitron-4b", 100.0, 100.0, 0.2, 1),
+            ("slow", "mamba2-370m", 500.0, 20.0, 0.3, 2))
 MAX_LEN, SLOTS, BUDGET = 48, 2, 32
 
 
 @pytest.fixture(scope="module")
 def jax_params():
     out = {}
-    for _, arch, *_ in AGENTS:
+    for _, arch, *_ in AGENTS + AGENTS_2:
         api = jax_build_model(jax_get_config(arch, reduced=True))
         out[arch] = (api, api.init(jax.random.key(0), dtype=jnp.float32))
     return out
 
 
-def _engines(policy, jax_params):
+def _engines(policy, jax_params, agents=AGENTS):
     jax_rts, rts = {}, {}
-    for name, arch, *_ in AGENTS:
+    for name, arch, *_ in agents:
         jax_api, params = jax_params[arch]
         jax_rts[name] = JaxRuntime(name, jax_api, params, max_len=MAX_LEN, batch_slots=SLOTS)
         cfg = get_config(arch, reduced=True)
@@ -46,17 +53,17 @@ def _engines(policy, jax_params):
             name, build_model(cfg),
             params_from_numpy(jax.tree_util.tree_map(np.asarray, params), cfg),
             max_len=MAX_LEN, batch_slots=SLOTS)
-    jax_fleet = JaxFleet.from_specs([JaxAgentSpec(*a[:1], 100.0, *a[2:]) for a in AGENTS])
-    fleet = Fleet.from_specs([AgentSpec(*a[:1], 100.0, *a[2:]) for a in AGENTS])
+    jax_fleet = JaxFleet.from_specs([JaxAgentSpec(a[0], *a[2:]) for a in agents])
+    fleet = Fleet.from_specs([AgentSpec(a[0], *a[2:]) for a in agents])
     return (JaxEngine(jax_fleet, jax_rts, policy=policy, budget_tokens=BUDGET),
             FleetEngine(fleet, rts, policy=policy, budget_tokens=BUDGET, device="cpu"))
 
 
-def _drive(engines, ticks=8, seed=0):
+def _drive(engines, ticks=8, seed=0, agents=AGENTS):
     rng = np.random.default_rng(seed)
     reqs = [[] for _ in engines]
     for t in range(ticks):
-        for name, *_ in AGENTS:
+        for name, *_ in agents:
             for _ in range(rng.poisson(1.5)):
                 prompt = rng.integers(0, 512, rng.integers(3, 11))
                 new = int(rng.integers(2, 6))
@@ -77,11 +84,7 @@ def _same(a, b):
     return a == b
 
 
-@pytest.mark.parametrize("policy", ["adaptive", "round_robin"])
-def test_engine_matches_jax_engine(policy, jax_params):
-    jax_eng, eng = _engines(policy, jax_params)
-    jax_reqs, reqs = _drive((jax_eng, eng))
-    assert eng.metrics()["completed"] > 0
+def _assert_engines_agree(jax_eng, eng, jax_reqs, reqs):
     for want, got in zip(jax_reqs, reqs):
         assert got.tokens_out == want.tokens_out, (got.id, got.agent)
         assert got.finish_tick == want.finish_tick
@@ -95,16 +98,54 @@ def test_engine_matches_jax_engine(policy, jax_params):
     assert _same(got_m, want_m), (got_m, want_m)
 
 
-def test_every_registered_policy_dispatches_in_engine(jax_params):
-    _, eng = _engines("adaptive", jax_params)
+@pytest.mark.parametrize("policy", ["adaptive", "round_robin"])
+def test_engine_matches_jax_engine(policy, jax_params):
+    jax_eng, eng = _engines(policy, jax_params)
+    jax_reqs, reqs = _drive((jax_eng, eng))
+    assert eng.metrics()["completed"] > 0
+    _assert_engines_agree(jax_eng, eng, jax_reqs, reqs)
+
+
+@pytest.mark.parametrize("policy", ["adaptive", "round_robin"])
+def test_two_agent_fleet_matches_jax_engine(policy, jax_params):
+    """The reference's minitron-4b + mamba2-370m engine: attention and ssm
+    caches side by side, the same streams on both agents."""
+    jax_eng, eng = _engines(policy, jax_params, AGENTS_2)
+    jax_reqs, reqs = _drive((jax_eng, eng), agents=AGENTS_2)
+    done = {r.agent for r in eng.completed}
+    assert done == {"fast", "slow"}, done
+    _assert_engines_agree(jax_eng, eng, jax_reqs, reqs)
+
+
+def _dispatch_every_policy(eng, agent):
     rng = np.random.default_rng(3)
     for policy in alloc.policy_names():
         eng.policy = policy
-        eng.submit("nlp", rng.integers(0, 50, 4), 2)
+        eng.submit(agent, rng.integers(0, 50, 4), 2)
         eng.step()
     assert eng.tick == len(alloc.policy_names())
     for h in eng.history:
         assert sum(h["allocation"]) <= 1.0 + 1e-6
+
+
+def test_every_registered_policy_dispatches_in_engine(jax_params):
+    _, eng = _engines("adaptive", jax_params)
+    _dispatch_every_policy(eng, "nlp")
+
+
+def test_every_registered_policy_dispatches_in_two_agent_engine(jax_params):
+    _, eng = _engines("adaptive", jax_params, AGENTS_2)
+    _dispatch_every_policy(eng, "slow")
+    assert any(r.agent == "slow" for r in eng.completed)
+
+
+def test_short_prompt_to_mamba_raises_in_both_engines(jax_params):
+    """A prompt shorter than ssm_conv_width - 1 leaves a short conv tail that
+    the batched cache cannot take, in the reference and in the port."""
+    for eng in _engines("adaptive", jax_params, AGENTS_2):
+        eng.submit("slow", np.arange(2), 3)
+        with pytest.raises(ValueError):
+            eng.step()
 
 
 @pytest.mark.parametrize("arg", ["workflow", "capacity", "failures"])
