@@ -9,15 +9,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``nvidia-smi``'s name and power limit.  TF32 is switched off so the
    plain float32 versions compute in full float32.
 2. Build: compiles the kernels from ``src/repro_torch/kernels`` (``nvcc``,
-   sm_90a, one process per source) and prints the build time and ptxas'
-   register counts.
+   sm_90a, one process per source) and prints the build time, ptxas'
+   registers, shared memory and spills per kernel, and the number of
+   ``HGMMA`` (``wgmma``) instructions in the library's SASS
+   (``cuobjdump``): the bf16 flash kernel must have some.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the shape cases of ``tests/test_kernels.py`` (attention: float32
    atol 1e-4, bfloat16 atol 2e-2; SSD: float32 atol 1e-4, bfloat16 atol
    5e-2, with the ``h0`` case) and at the serving slices' shapes; one JSON
    line per kernel and shape with the error, the kernel's, the plain
    version's and (attention) ``scaled_dot_product_attention``'s times, and
-   the bound.  The SSD scan has no single PyTorch call to time beside it.
+   the bound; flash rows also give the route (bf16 on the tensor cores,
+   float32 on the FMA pipes), the TFLOP/s reached and the share of the
+   bound.  The SSD scan has no single PyTorch call to time beside it.
 4. Full-width models, kernels vs plain versions, one 512-token prefill and 8
    decode steps each, compared step by step, at published widths with
    seeded random weights: granite-8b in bfloat16, and mamba2-370m in
@@ -28,6 +32,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    just after: ``build_engine`` over the dense Table I fleet at full width,
    then the reference's two-agent engine fleet (``tests/test_serving.py``:
    minitron-4b and mamba2-370m) at full width.
+6. Profile: full-width granite-8b decode steps (4 rows, a 300-entry
+   cache) on the host clock and in ``torch.profiler``: the device's busy
+   share of a step; then a check that a decode call with an int length is
+   one device kernel.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -215,6 +223,24 @@ def phase_build() -> None:
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        print(f"sass: {cuobjdump} is missing; HGMMA not counted", flush=True)
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and kernel:
+            counts[kernel] = counts.get(kernel, 0) + 1
+    flash = {k: n for k, n in counts.items() if "flash_sm90_kernel" in k}
+    print(f"sass: {sum(counts.values())} HGMMA instructions, {sum(flash.values())} in "
+          f"{len(flash)} bf16 flash kernels, {len(counts) - len(flash)} other kernels with any",
+          flush=True)
+    check(len(flash) == 6 and all(flash.values()),
+          "the bf16 flash kernels do not run on the tensor cores (no HGMMA in their SASS)")
 
 
 # ---------------------------------------------------------------------------
@@ -261,16 +287,17 @@ def check_flash(case, dtype, gpu, seed=0) -> dict:
         lib_args = {"mask": None if pairs == s_q * s_kv else mask}
     lib = _sdpa(qt, kt, vt, **lib_args)
     lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+    flops = 4 * b * h * d * pairs
     bms, by = bound(gpu, (2 * b * s_q * h + 2 * b * s_kv * kv) * d * q.element_size(),
-                    4 * b * h * d * pairs, dtype)
+                    flops, dtype)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off))
     return {
         "kernel": "flash_attention", "case": list(case), "dtype": str(dtype).split(".")[-1],
-        "max_abs_err": err, "atol": ATOL[dtype], "sdpa_max_abs_err": lib_err,
-        "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
-                                                 q_offset=off)),
+        "route": fa.route(dtype), "max_abs_err": err, "atol": ATOL[dtype],
+        "sdpa_max_abs_err": lib_err, "ms": ms,
         "plain_ms": time_ms(lambda: ref.mha(q, k, v, causal=causal, window=window, q_offset=off)),
         "library_ms": time_ms(lambda: _sdpa(qt, kt, vt, **lib_args)),
-        "bound_ms": bms, "bound_by": by,
+        "bound_ms": bms, "bound_by": by, "tflops": flops / ms * 1e-9, "bound_share": bms / ms,
     }
 
 
@@ -342,6 +369,30 @@ def check_ssd(case, dtype, gpu, seed=0) -> dict:
         "blocks": {"chunk_state": blocks, "state_passing": b * h * -(-p * n // 256),
                    "chunk_scan": blocks},
     }
+
+
+def check_decode_launches(case=SUMMARY_DECODE, calls: int = 3) -> None:
+    """A decode call with an int length is one device kernel: no fill of
+    the lengths, no combine pass (``torch.profiler``'s device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.attention import decode_attention as da
+
+    b, h, kv, d, s_max, clen, window = case
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    q = _randn(gen, (b, h, d), torch.bfloat16)
+    kc, vc = (_randn(gen, (b, s_max, kv, d), torch.bfloat16) for _ in range(2))
+    da.decode_attention(q, kc, vc, clen, window=window)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            da.decode_attention(q, kc, vc, clen, window=window)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    emit({"phase": "decode_launches", "case": list(case), "calls": calls,
+          "device_kernels": len(names), "names": sorted(set(names))})
+    check(len(names) == calls and all("repro::" in n and "decode_" in n for n in names),
+          f"decode: {len(names)} device kernels for {calls} calls: {sorted(set(names))}")
 
 
 def phase_kernels(gpu: str) -> dict:
@@ -559,6 +610,60 @@ def phase_two_agent_engine(reduced: bool = False, max_len: int = 1024,
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: where a decode step's time goes
+# ---------------------------------------------------------------------------
+
+def phase_profile(arch: str = "granite-8b", batch: int = 4, prompt_len: int = 300,
+                  steps: int = 20, profiled: int = 5) -> None:
+    """Full-width ``arch``: the host-clock time of a decode step at ``batch``
+    rows and a ``prompt_len`` cache, against the device time of the same
+    steps in ``torch.profiler`` (summed over every kernel), so the device's
+    busy share of a step is device time over host time.  Run last: once
+    started, the profiler's device tracing stays attached to the process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=DEVICE)
+
+    def run(n, caches, tok, pos):
+        times = []
+        for step in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = api.decode_step(params, caches, tok, pos + step, 1024)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            tok = logits.argmax(-1).reshape(-1)
+        return times, caches, tok
+
+    with torch.no_grad():
+        logits, caches = api.prefill(params, {"tokens": tokens}, 1024)
+        tok = logits.argmax(-1).reshape(-1)
+        host, caches, tok = run(steps, caches, tok, prompt_len)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, caches, tok = run(profiled, caches, tok, prompt_len + steps)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / profiled / 1e3
+    decode_ms = sum(e.time_range.elapsed_us() for e in kernels
+                    if "repro::" in e.name and "decode_" in e.name) / profiled / 1e3
+    host_ms = statistics.median(host) * 1e3
+    emit({"phase": "profile", "arch": arch, "batch": batch, "cache_len": prompt_len,
+          "host_step_ms": host_ms, "host_step_ms_min": min(host) * 1e3,
+          "device_ms_per_step": device_ms, "busy_share": device_ms / host_ms,
+          "decode_attention_device_ms_per_step": decode_ms,
+          "device_kernels_per_step": len(kernels) / profiled})
+    check(device_ms > 0, "the profiler saw no device time in a decode step")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -578,8 +683,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     two_agent = phase_two_agent_engine()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Last: the profiler's device tracing, once started, stays attached to
+    # the process and would slow every later launch on the host.
+    phase_profile()
+    check_decode_launches()
     sources = {
-        "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+        # the bf16 route, which the summary shape and the fleets run
+        "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",
                             "src/repro/kernels/attention/flash_attention.py:90"),
         "decode_attention": ("src/repro_torch/kernels/attention/csrc/decode_attention.cu",
                              "src/repro/kernels/attention/decode_attention.py:70"),

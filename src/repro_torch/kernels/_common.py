@@ -30,6 +30,15 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# Codes the C entries return besides CUDA's own errors.
+OWN_ERRORS = {
+    -1: "the driver's cuTensorMapEncodeTiled is not available",
+    -2: "the driver refused a TMA tensor map for these operands",
+}
+
+
 def raise_on_error(name: str, err: int) -> None:
+    if err < 0:
+        raise RuntimeError(f"{name}: {OWN_ERRORS.get(err, f'error {err}')}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

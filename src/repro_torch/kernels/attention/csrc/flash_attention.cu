@@ -1,24 +1,25 @@
-// Flash attention (prefill) for Hopper (sm_90a): GQA, causal / sliding
-// window / q_offset masks, online softmax in float32.
+// Flash attention (prefill) in float32 for Hopper (sm_90a): GQA, causal /
+// sliding window / q_offset masks, online softmax in float32.
 //
 // Replaces: src/repro/kernels/attention/flash_attention.py::flash_attention
 // (Pallas body `_kernel`), which walks a (B, H, nq, nk) grid with the K/V
-// tile index innermost and (acc, m, l) carried in VMEM scratch.
+// tile index innermost and (acc, m, l) carried in VMEM scratch.  This file
+// is the float32 route; bfloat16 goes to the tensor-core kernel in
+// flash_attention_sm90.cu (the wrapper picks the route by dtype).  A TF32
+// product would miss float32's tolerance, so float32 stays on the FMA pipes.
 //
 // What bounds it on an H100: operations.  At prefill lengths of a few
 // hundred tokens and more, 4·S_q·S_kv·D flops (halved when causal) against
-// (2·S_q·H + 2·S_kv·KV)·D elements moved puts it far above the ~295
-// flops/byte ridge; the least time is the flops over the 989 TFLOP/s bf16
-// tensor-core peak (67 TFLOP/s for float32, which this kernel computes on
-// the FMA pipes).
+// (2·S_q·H + 2·S_kv·KV)·D elements moved puts it far above the ridge; the
+// least time is the flops over the 67 TFLOP/s float32 FMA peak.
 //
-// What the design does about it, in this first, simple version:
+// What the design does about it:
 //   * One block per (q tile of 64 rows, q head, batch row).  The K/V head is
 //     h / G, read through the (B, S, KV, D) strides, so K/V are never
 //     repeated or transposed in device memory.
-//   * The Q tile is staged once in shared memory as float32; K and V tiles of
-//     32 rows are staged in turn with 16-byte loads.  Rows are padded by one
-//     float so that the column reads below hit distinct banks.
+//   * The Q tile is staged once in shared memory; K and V tiles of 32 rows
+//     are staged in turn with 16-byte loads.  Rows are padded by one float
+//     so that the column reads below hit distinct banks.
 //   * 128 threads as a 16 x 8 grid: each thread owns a 4 x 4 block of the
 //     score tile (register reuse: 8 shared loads per 16 FMAs) and 4 rows x
 //     D/8 columns of the output accumulator.  Row max and row sum are
@@ -27,8 +28,6 @@
 //     visited (the loop bounds come from the masks); ragged tile edges are
 //     masked in the kernel and out-of-range rows are loaded as zeros, so the
 //     wrapper makes no padded copies.
-// The products run on the FMA pipes, not the tensor cores; `wgmma`, TMA and
-// warp specialisation are the road to the bf16 bound.
 #include "common.cuh"
 
 namespace repro {
@@ -235,11 +234,11 @@ cudaError_t launch_d(const FlashArgs& a, int D, cudaStream_t stream) {
 }  // namespace
 }  // namespace repro
 
-// dtype: 0 = float32, 1 = bfloat16.  q (B,S_q,H,D), k/v (B,S_kv,KV,D), o
+// float32 only.  q (B,S_q,H,D), k/v (B,S_kv,KV,D), o
 // (B,S_q,H,D); strides in elements, last dimension contiguous.  Returns the
 // CUDA error of the launch (0 on success).
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B, int S_q, int S_kv,
+    const void* q, const void* k, const void* v, void* o, int B, int S_q, int S_kv,
     int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window, int q_offset,
@@ -272,7 +271,5 @@ extern "C" int repro_flash_attention(
   a.q_offset = q_offset;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(repro::launch_d<float>(a, D, st));
-  if (dtype == 1) return static_cast<int>(repro::launch_d<__nv_bfloat16>(a, D, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(repro::launch_d<float>(a, D, st));
 }

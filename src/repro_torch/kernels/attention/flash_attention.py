@@ -1,10 +1,16 @@
-"""Flash attention for prefill: wrapper of the CUDA kernel in
-``csrc/flash_attention.cu`` (replaces the Pallas kernel
+"""Flash attention for prefill: wrapper of the CUDA kernels in
+``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention.cu`` (they
+replace the Pallas kernel
 ``repro/kernels/attention/flash_attention.py::flash_attention``).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it computes the plain version, ``ref.mha``.  ``launches`` counts the kernel
-launches this process made.
+The route is chosen by dtype before the launch (``route``): bfloat16 runs
+on the tensor cores (``wgmma`` fed by TMA, ``flash_attention_sm90.cu``);
+float32 runs on the FMA pipes (``flash_attention.cu``), since a TF32
+product would miss float32's tolerance.  Each route launches its kernel or
+raises; neither falls back to the other or to the plain version.
+
+On a CPU tensor the wrapper computes the plain version, ``ref.mha``.
+``launches`` counts the kernel launches this process made.
 """
 from __future__ import annotations
 
@@ -13,25 +19,34 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES, raise_on_error, stream_handle
+from repro_torch.kernels._common import raise_on_error, stream_handle
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention._common import check_operands
 
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+_ENTRIES = {"wgmma": "repro_flash_attention_sm90", "fma": "repro_flash_attention"}
+
 launches = 0
-_fn = None
+_fns: dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library().repro_flash_attention
+def route(dtype: torch.dtype) -> str:
+    """The kernel that computes ``dtype``: ``"wgmma"`` or ``"fma"``."""
+    if dtype not in ROUTES:
+        raise ValueError(f"flash_attention: dtype {dtype}; the kernels take {list(ROUTES)}")
+    return ROUTES[dtype]
+
+
+def _kernel(name: str):
+    if name not in _fns:
+        fn = getattr(_build.library(), _ENTRIES[name])
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
         )
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -50,9 +65,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"q_offset={q_offset}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
-        err = _kernel()(
+        err = _kernel(route(q.dtype))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPE_CODES[q.dtype], b, s_q, s_kv, h, kv, d,
+            b, s_q, s_kv, h, kv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             int(causal), int(window), int(q_offset), ref.softmax_scale(d), stream_handle(q),
         )

@@ -120,6 +120,42 @@ def test_explicit_kernel_route_raises_off_the_card():
 
 
 def test_split_plan_covers_the_cache():
-    for b, kv, s_max in ((4, 8, 1024), (4, 2, 1024), (1, 1, 96), (3, 2, 300), (64, 8, 4096)):
+    for b, kv, s_max in ((4, 8, 1024), (4, 2, 1024), (1, 1, 96), (3, 2, 300), (64, 8, 4096),
+                         (4, 8, 1), (1, 1, 32), (2, 4, 33)):
         chunk, n_split = decode_wrapper.split_plan(b, kv, s_max)
         assert chunk % 32 == 0 and n_split * chunk >= s_max > (n_split - 1) * chunk
+        # about one block per SM at most, and one cluster per (b, kv head)
+        assert b * kv * n_split <= decode_wrapper.TARGET_BLOCKS or n_split == 1
+        assert n_split <= decode_wrapper.MAX_SPLIT
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + [
+    (4, 32, 8, 128, 1024, 300, 0),     # granite-8b in the engine
+    (4, 12, 2, 128, 1024, 300, 0),     # qwen2-vl-2b
+    (4, 32, 8, 128, 1024, 1300, 0),    # length past S_max
+    (2, 8, 2, 64, 4096, 3000, 500),    # window inside a long cache
+    (1, 8, 8, 64, 96, 40, 100),        # window wider than the length
+])
+def test_split_plan_over_the_valid_range(case):
+    """For an int length the chunks tile exactly the entries the plain
+    version attends to, and every chunk holds some."""
+    b, h, kv, d, s_max, clen, window = case
+    begin, end = decode_wrapper.valid_range(clen, s_max, window)
+    pos = torch.arange(s_max)
+    valid = (pos < clen) & ((pos >= clen - window) if window > 0 else True)
+    assert (begin, end) == (int(pos[valid].min()), int(pos[valid].max()) + 1)
+    assert int(valid.sum()) == end - begin  # one contiguous range
+    chunk, n_split = decode_wrapper.split_plan(b, kv, end - begin)
+    chunks = [(begin + i * chunk, min(begin + (i + 1) * chunk, end)) for i in range(n_split)]
+    assert chunks[0][0] == begin and chunks[-1][1] == end
+    assert all(lo < hi for lo, hi in chunks)                          # none empty
+    assert all(a[1] == b_[0] for a, b_ in zip(chunks, chunks[1:]))   # no gap, no overlap
+    assert chunk % decode_wrapper.CHUNK_ALIGN == 0 and n_split <= decode_wrapper.MAX_SPLIT
+
+
+def test_flash_route_is_chosen_by_dtype():
+    assert flash_wrapper.route(torch.bfloat16) == "wgmma"
+    assert flash_wrapper.route(torch.float32) == "fma"
+    for dtype in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(ValueError, match="dtype"):
+            flash_wrapper.route(dtype)

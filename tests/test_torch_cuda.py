@@ -74,6 +74,117 @@ def test_decode_kernel_matches_plain(case, dtype, card):
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
 
 
+# The shape cases of tests/test_kernels.py, (b, s_q, s_kv, h, kv, d, causal,
+# window), with the q_offset chip_smoke.py gives them: D = 32/64/128, the
+# window, and non-causal S_q < S_kv (cross attention).
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 200, 200, 8, 8, 128, True, 0),
+    (2, 64, 256, 4, 1, 32, False, 0),
+    (1, 256, 256, 4, 2, 64, True, 64),
+    (2, 96, 96, 6, 3, 64, True, 0),
+    (1, 128, 512, 4, 4, 128, True, 0),
+]
+
+
+def _flash_check(case, dtype, gen, q_offset=None):
+    b, s_q, s_kv, h, kv, d, causal, window = case
+    off = (s_kv - s_q if causal else 0) if q_offset is None else q_offset
+    q = _randn(gen, (b, s_q, h, d), dtype)
+    k, v = (_randn(gen, (b, s_kv, kv, d), dtype) for _ in range(2))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    want = ref.mha(q, k, v, causal=causal, window=window, q_offset=off)
+    assert fa.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_routes_at_the_kernel_cases(case, dtype, card):
+    """bf16 through the wgmma kernel, float32 through the FMA kernel."""
+    _flash_check(case, dtype, card)
+
+
+@pytest.mark.parametrize("s", [100, 200, 1000])
+@pytest.mark.parametrize("heads", [(12, 4), (32, 8), (12, 2)], ids=["G3", "G4", "G6"])
+def test_flash_wgmma_ragged_lengths_and_gqa_ratios(s, heads, card):
+    h, kv = heads
+    _flash_check((2, s, s, h, kv, 128, True, 0), torch.bfloat16, card)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_wgmma_long_prompt_two_consumers(window, card):
+    """2048 rows x 32 heads: the launch puts two consumer warpgroups in a block."""
+    _flash_check((1, 2048, 2048, 32, 8, 128, True, window), torch.bfloat16, card)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_wgmma_reads_strided_views_of_one_projection(d, card):
+    """q, k, v as the model could hand them: head slices of one (B, S, (H +
+    2·KV)·D) projection, and a (B, H, S, D) tensor seen through a transpose."""
+    b, s, h, kv = 2, 150, 8, 2
+    proj = _randn(card, (b, s, (h + 2 * kv) * d), torch.bfloat16)
+    q = proj[..., :h * d].unflatten(-1, (h, d))
+    k = proj[..., h * d:(h + kv) * d].unflatten(-1, (kv, d))
+    v = proj[..., (h + kv) * d:].unflatten(-1, (kv, d))
+    assert not q.is_contiguous() and not k.is_contiguous()
+    got = fa.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), ref.mha(q, k, v).float(), atol=2e-2, rtol=0)
+    qt = _randn(card, (b, h, s, d), torch.bfloat16).transpose(1, 2)
+    got = fa.flash_attention(qt, k, v, causal=False)
+    want = ref.mha(qt, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+# The decode kernel: (b, h, kv, d, s_max, cache_len, window).
+DECODE_INT_CASES = [
+    (2, 8, 2, 64, 300, 150, 0),
+    (1, 4, 4, 128, 512, 512, 0),      # len = S_max
+    (3, 16, 2, 64, 256, 256, 128),    # rolling sliding-window cache
+    (2, 4, 1, 32, 1024, 700, 0),
+    (1, 8, 8, 64, 96, 1, 0),          # len 1
+    (4, 32, 8, 128, 1024, 300, 0),    # granite-8b
+    (4, 12, 2, 128, 1024, 1024, 0),   # qwen2-vl-2b, len = S_max
+    (4, 24, 8, 128, 1024, 1, 0),      # minitron-4b, len 1
+    (2, 8, 2, 128, 4096, 3000, 500),  # window inside a long cache
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", DECODE_INT_CASES)
+def test_decode_kernel_with_an_int_length(case, dtype, card):
+    b, h, kv, d, s_max, clen, window = case
+    q = _randn(card, (b, h, d), dtype)
+    kc, vc = (_randn(card, (b, s_max, kv, d), dtype) for _ in range(2))
+    want = ref.decode_gqa(q, kc, vc, clen, window=window)
+    for _ in range(2):  # the second call reuses the scratch and its counters
+        before = da.launches
+        got = da.decode_attention(q, kc, vc, clen, window=window)
+        assert da.launches == before + 1 and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
+    lens = torch.full((b,), clen, dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(da.decode_attention(q, kc, vc, lens, window=window).float(),
+                               want.float(), atol=ATOL[dtype], rtol=0)
+
+
+def test_decode_is_one_launch_per_call(card):
+    """One device kernel per call with an int length: no fill, no combine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q = _randn(card, (4, 32, 128), torch.bfloat16)
+    kc, vc = (_randn(card, (4, 1024, 8, 128), torch.bfloat16) for _ in range(2))
+    da.decode_attention(q, kc, vc, 300)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            da.decode_attention(q, kc, vc, 300)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {e.name for e in kernels}
+    assert len(kernels) == 3 and all("repro::" in n and "decode_" in n for n in names), names
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = _randn(card, (1, 16, 4, 128), torch.float16)
     with pytest.raises(ValueError, match="dtype"):
