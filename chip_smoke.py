@@ -11,17 +11,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. Build: compiles the kernels from ``src/repro_torch/kernels`` (``nvcc``,
    sm_90a, one process per source) and prints the build time, ptxas'
    registers, shared memory and spills per kernel, and the number of
-   ``HGMMA`` (``wgmma``) instructions in the library's SASS
-   (``cuobjdump``): the bf16 flash kernel must have some.
+   tensor-core instructions in the library's SASS (``cuobjdump``): each
+   bf16 flash kernel must have ``HGMMA`` (``wgmma``), and each bf16 SSD
+   kernel both ``HGMMA`` (C·Bᵀ) and ``HMMA`` (``mma.sync``, the other
+   products).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the shape cases of ``tests/test_kernels.py`` (attention: float32
    atol 1e-4, bfloat16 atol 2e-2; SSD: float32 atol 1e-4, bfloat16 atol
    5e-2, with the ``h0`` case) and at the serving slices' shapes; one JSON
    line per kernel and shape with the error, the kernel's, the plain
    version's and (attention) ``scaled_dot_product_attention``'s times, and
-   the bound; flash rows also give the route (bf16 on the tensor cores,
-   float32 on the FMA pipes), the TFLOP/s reached and the share of the
-   bound.  The SSD scan has no single PyTorch call to time beside it.
+   the bound; flash and SSD rows also give the route (bf16 on the tensor
+   cores, float32 on the FMA pipes), the TFLOP/s reached and the share of
+   the bound.  The SSD scan has no single PyTorch call to time beside it.
 4. Full-width models, kernels vs plain versions, one 512-token prefill and 8
    decode steps each, compared step by step, at published widths with
    seeded random weights: granite-8b in bfloat16, and mamba2-370m in
@@ -34,8 +36,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    minitron-4b and mamba2-370m) at full width.
 6. Profile: full-width granite-8b decode steps (4 rows, a 300-entry
    cache) on the host clock and in ``torch.profiler``: the device's busy
-   share of a step; then a check that a decode call with an int length is
-   one device kernel.
+   share of a step; then checks that a decode call with an int length is
+   one device kernel, and that a bf16 SSD call is one device kernel that
+   allocates only its outputs, with the SSD device time of a full-width
+   mamba2-370m prefill of 512 tokens.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -229,18 +233,25 @@ def phase_build() -> None:
         return
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts, kernel = {}, None
+    counts, kernel = {}, None  # kernel -> {opcode: instructions}
     for line in sass.splitlines():
         if "Function :" in line:
             kernel = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and kernel:
-            counts[kernel] = counts.get(kernel, 0) + 1
-    flash = {k: n for k, n in counts.items() if "flash_sm90_kernel" in k}
-    print(f"sass: {sum(counts.values())} HGMMA instructions, {sum(flash.values())} in "
-          f"{len(flash)} bf16 flash kernels, {len(counts) - len(flash)} other kernels with any",
+        elif kernel:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts.setdefault(kernel, {}).setdefault(op, 0)
+                    counts[kernel][op] += 1
+    flash = {k: c.get("HGMMA", 0) for k, c in counts.items() if "flash_sm90_kernel" in k}
+    ssd = {k: c for k, c in counts.items() if "ssd_sm90_kernel" in k}
+    print(f"sass: {sum(c.get('HGMMA', 0) for c in counts.values())} HGMMA instructions, "
+          f"{sum(flash.values())} in {len(flash)} bf16 flash kernels; bf16 SSD kernels "
+          f"(HGMMA, HMMA): {sorted((c.get('HGMMA', 0), c.get('HMMA', 0)) for c in ssd.values())}",
           flush=True)
     check(len(flash) == 6 and all(flash.values()),
           "the bf16 flash kernels do not run on the tensor cores (no HGMMA in their SASS)")
+    check(len(ssd) == 4 and all(c.get("HGMMA", 0) and c.get("HMMA", 0) for c in ssd.values()),
+          f"the bf16 SSD kernels do not run on the tensor cores: {ssd}")
 
 
 # ---------------------------------------------------------------------------
@@ -332,12 +343,9 @@ def check_decode(case, dtype, gpu, seed=0) -> dict:
     }
 
 
-def check_ssd(case, dtype, gpu, seed=0) -> dict:
-    """The kernel against ``ref.ssd_chunked`` at the caller's chunk, inputs
-    built as tests/test_kernels.py builds them; y and the final state."""
-    from repro_torch.kernels.ssd import ref, ssd_scan
-
-    b, s, h, p, n, chunk, with_h0 = case
+def _ssd_inputs(case, dtype, seed=0):
+    """SSD inputs built as tests/test_kernels.py builds them."""
+    b, s, h, p, n, _, with_h0 = case
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     x = (torch.randn((b, s, h, p), generator=gen, device=DEVICE) * 0.5).to(dtype)
     dt = F.softplus(torch.randn((b, s, h), generator=gen, device=DEVICE))
@@ -345,6 +353,16 @@ def check_ssd(case, dtype, gpu, seed=0) -> dict:
     Bm, Cm = (_randn(gen, (b, s, n), dtype) for _ in range(2))
     D = torch.ones((h,), device=DEVICE)
     h0 = torch.randn((b, h, p, n), generator=gen, device=DEVICE) if with_h0 else None
+    return x, dt, A, Bm, Cm, D, h0
+
+
+def check_ssd(case, dtype, gpu, seed=0) -> dict:
+    """The kernel against ``ref.ssd_chunked`` at the caller's chunk; y and
+    the final state."""
+    from repro_torch.kernels.ssd import ref, ssd_scan
+
+    b, s, h, p, n, chunk, with_h0 = case
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(case, dtype, seed)
     (gy, gh) = ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)
     (wy, wh) = ref.ssd_chunked(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)
     torch.cuda.synchronize()
@@ -355,20 +373,81 @@ def check_ssd(case, dtype, gpu, seed=0) -> dict:
     bytes_moved = (2 * x.numel() * elem + dt.numel() * 4 + 2 * Bm.numel() * elem
                    + (h0.numel() * 4 if with_h0 else 0) + gh.numel() * 4)
     chunks = -(-s // chunk)
-    bms, by = bound(gpu, bytes_moved,
-                    2 * chunk * (chunk * n + chunk * p + 2 * n * p) * b * h * chunks, dtype)
-    blocks = b * h * -(-s // ssd_scan.KERNEL_CHUNK)
+    # C·Bᵀ once per (batch row, chunk): B and C are one group that all heads
+    # share; the gated products and the state's per head.
+    flops = (2 * chunk * chunk * n * b * chunks
+             + 2 * chunk * (chunk * p + 2 * n * p) * b * h * chunks)
+    bms, by = bound(gpu, bytes_moved, flops, dtype)
+    pl = ssd_scan.plan(b, s, h, p, n, dtype)
+    ms = time_ms(lambda: ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk))
     return {
         "kernel": "ssd", "case": list(case), "dtype": str(dtype).split(".")[-1],
-        "max_abs_err": float(dy.max()), "h_max_abs_err": float((gh - wh).abs().max()),
-        "atol": SSD_ATOL[dtype], "rtol": rtol, "excess_over_rtol": excess,
-        "ms": time_ms(lambda: ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)),
+        "route": pl.route, "max_abs_err": float(dy.max()),
+        "h_max_abs_err": float((gh - wh).abs().max()),
+        "atol": SSD_ATOL[dtype], "rtol": rtol, "excess_over_rtol": excess, "ms": ms,
         "plain_ms": time_ms(lambda: ref.ssd_chunked(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)),
         "library_ms": None, "library": "none (no single PyTorch call computes the SSD scan)",
-        "bound_ms": bms, "bound_by": by,
-        "blocks": {"chunk_state": blocks, "state_passing": b * h * -(-p * n // 256),
-                   "chunk_scan": blocks},
+        "bound_ms": bms, "bound_by": by, "tflops": flops / ms * 1e-9, "bound_share": bms / ms,
+        "grid": list(pl.grid), "device_kernels": pl.kernels,
     }
+
+
+def check_ssd_launches(case=SUMMARY_SSD, calls: int = 3) -> dict:
+    """A bf16 SSD call is one device kernel and allocates nothing but y and
+    the final state; then the SSD device time of one full-width
+    mamba2-370m prefill of ``case``'s length (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models.model import build_model
+
+    s, chunk = case[1], case[5]
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(case, torch.bfloat16)
+    ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.max_memory_allocated() - base
+    outputs = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in out)  # allocator blocks
+    del out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(names) == calls and all("ssd_sm90_kernel" in nm for nm in names),
+          f"ssd: {len(names)} device kernels for {calls} bf16 calls: {sorted(set(names))}")
+    check(allocated <= outputs,
+          f"ssd: a bf16 call allocated {allocated} bytes, its outputs take {outputs}")
+
+    cfg = get_config("mamba2-370m")
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=DEVICE)
+    with torch.no_grad():
+        api.prefill(params, {"tokens": tokens}, 1024)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            api.prefill(params, {"tokens": tokens}, 1024)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    scans = [e for e in kernels if "ssd_sm90_kernel" in e.name]
+    row = {"phase": "ssd_launches", "case": list(case), "calls": calls,
+           "device_kernels": len(names), "names": sorted(set(names)),
+           "allocated_bytes": allocated, "output_bytes": outputs,
+           "prefill_tokens": s, "prefill_ssd_kernels": len(scans),
+           "prefill_ssd_device_ms": sum(e.time_range.elapsed_us() for e in scans) / 1e3,
+           "prefill_device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
+    emit(row)
+    check(len(scans) == cfg.num_layers,
+          f"ssd: {len(scans)} SSD kernels in a {cfg.num_layers}-layer mamba prefill")
+    del params
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_decode_launches(case=SUMMARY_DECODE, calls: int = 3) -> None:
@@ -689,13 +768,14 @@ def main() -> None:
     # the process and would slow every later launch on the host.
     phase_profile()
     check_decode_launches()
+    check_ssd_launches()
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",
                             "src/repro/kernels/attention/flash_attention.py:90"),
         "decode_attention": ("src/repro_torch/kernels/attention/csrc/decode_attention.cu",
                              "src/repro/kernels/attention/decode_attention.py:70"),
-        "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+        "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd_scan_sm90.cu",
                 "src/repro/kernels/ssd/ssd_scan.py:82"),
     }
     kernels = []

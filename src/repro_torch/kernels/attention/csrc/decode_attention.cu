@@ -89,20 +89,6 @@ __device__ __forceinline__ Range block_range(const DecodeArgs& a, int b, int spl
   return {max(c0, valid_begin), c1};
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Copies `rows` cache rows (of D elements, row stride `stride`) starting at
 // `src` into a tile of `tile_rows` rows in shared memory whose 16-byte
 // chunk c of row r sits at chunk c ^ (r & 7) (for rows of fewer than 8
@@ -373,33 +359,6 @@ constexpr int kMmaStages = 2;  // each warp's ring: one tile in flight while one
 template <int D>
 __host__ __device__ constexpr int mma_smem_bytes() {
   return kWarps * kMmaStages * 2 * kMmaTile * D * static_cast<int>(sizeof(__nv_bfloat16));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major fragment) · b (16 x 8, bf16, column fragment).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Fragments of m16n8k16 for lane l: A holds row l/4 (and l/4 + 8) at

@@ -1,4 +1,5 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), float32 inputs.  bfloat16
+// inputs take the one-launch tensor-core kernel of ssd_scan_sm90.cu.
 //
 // Replaces: src/repro/kernels/ssd/ssd_scan.py::ssd (Pallas body `_kernel`),
 // which walks the chunks of one (batch, head) in order along a sequential
@@ -337,7 +338,7 @@ cudaError_t launch_p(const SsdArgs& a, cudaStream_t stream) {
 }  // namespace
 }  // namespace repro
 
-// dtype (of x, B and C): 0 = float32, 1 = bfloat16.  dt, A, D, h0 and the
+// dtype (of x, B and C): 0 = float32, the only one taken.  dt, A, D, h0 and the
 // outputs h_final and the scratch are float32; h0 may be null.  Strides are
 // in elements; the last dimension of x, dt, B and C is contiguous, y is
 // contiguous (B, S, H, P).  states is (B, H, ⌈S/64⌉, P, N) and a_tot
@@ -378,6 +379,5 @@ extern "C" int repro_ssd_scan(
   a.c_ss = c_ss;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(repro::launch_p<float>(a, st));
-  if (dtype == 1) return static_cast<int>(repro::launch_p<__nv_bfloat16>(a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,15 +1,25 @@
-"""Mamba-2 SSD chunked scan: wrapper of the CUDA kernel in
-``csrc/ssd_scan.cu`` (replaces the Pallas kernel
-``repro/kernels/ssd/ssd_scan.py::ssd``).
+"""Mamba-2 SSD chunked scan: wrapper of the CUDA kernels in
+``csrc/ssd_scan_sm90.cu`` and ``csrc/ssd_scan.cu`` (they replace the Pallas
+kernel ``repro/kernels/ssd/ssd_scan.py::ssd``).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it computes the plain version, ``ref.ssd_chunked``.  ``launches`` counts
-the kernel launches (one chunk-state, state-passing and chunk-scan pass
-each) this process made.
+The route is chosen by the dtype of x, B and C before the launch
+(``plan``): bfloat16 runs on the tensor cores (``wgmma`` and ``mma.sync``)
+in one launch with the state kept on chip (``ssd_scan_sm90.cu``, one block
+per 16 of a head's P columns, B and C through TMA, so x, B and C need
+16-byte aligned rows); float32 runs on the FMA pipes in three launches with
+the chunk states in device memory (``ssd_scan.cu``), since a bf16 split of
+float32 operands would not hold float32's tolerance.  Each route launches
+its kernel or raises; neither falls back to the other or to the plain
+version.
+
+On a CPU tensor the wrapper computes the plain version, ``ref.ssd_chunked``.
+``launches`` counts the calls that launched a kernel in this process (one
+per call on either route).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -20,23 +30,57 @@ from repro_torch.kernels.ssd import ref
 HEAD_DIMS = (16, 32, 64)   # P
 MAX_STATE = 128            # N
 MAX_CHUNK = 128
-KERNEL_CHUNK = 64          # the kernel's own chunk; the function does not depend on it
+KERNEL_CHUNK = 64          # both kernels' own chunk; the function does not depend on it
+P_TILE = 16                # P columns per block of the tensor-core kernel
+
+ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
+_ENTRIES = {"mma": "repro_ssd_scan_sm90", "fma": "repro_ssd_scan"}
+_ARGTYPES = {
+    "mma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+           + [ctypes.c_void_p],
+    "fma": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+           + [ctypes.c_void_p],
+}
 
 launches = 0
-_fn = None
+_fns: dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library().repro_ssd_scan
+@dataclass(frozen=True)
+class Plan:
+    """What one call on the card launches for x of shape (b, s, h, p)."""
+    route: str                      # "mma" (bf16, tensor cores) or "fma" (float32)
+    grid: tuple[int, int, int]      # blocks of the (first) launch, x-major
+    kernels: int                    # device kernels per call
+    scratch: tuple[tuple[int, ...], ...]  # float32 scratch the wrapper allocates
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel that computes x, B and C of ``dtype``: ``"mma"`` or ``"fma"``."""
+    if dtype not in ROUTES:
+        raise ValueError(f"ssd: dtype {dtype}; the kernels take {list(ROUTES)}")
+    return ROUTES[dtype]
+
+
+def plan(b: int, s: int, h: int, p: int, n: int, dtype: torch.dtype) -> Plan:
+    """The launch a call makes: on the bf16 route one block per (P tile of
+    16, head, batch row) walking every chunk with its state slice on chip;
+    on the float32 route one block per (chunk, head, batch row) in the first
+    and last of three passes, with the chunk states in scratch."""
+    r = route(dtype)
+    if r == "mma":
+        return Plan(r, (p // P_TILE, h, b), 1, ())
+    nc = -(-s // KERNEL_CHUNK)
+    return Plan(r, (nc, h, b), 3, ((b, h, nc, p, n), (b, h, nc)))
+
+
+def _kernel(name: str):
+    if name not in _fns:
+        fn = getattr(_build.library(), _ENTRIES[name])
         fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-            + [ctypes.c_void_p]
-        )
-        _fn = fn
-    return _fn
+        fn.argtypes = _ARGTYPES[name]
+        _fns[name] = fn
+    return _fns[name]
 
 
 def _check(x, dt, A, Bm, Cm, D, h0, chunk):
@@ -50,9 +94,9 @@ def _check(x, dt, A, Bm, Cm, D, h0, chunk):
             raise ValueError(f"ssd: {arg} is on {t.device}, the kernel needs a CUDA tensor")
         if t.device != x.device:
             raise ValueError(f"ssd: {arg} is on {t.device}, not {x.device}")
-    if x.dtype not in DTYPE_CODES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+    if x.dtype not in ROUTES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise ValueError(f"ssd: x, Bm, Cm are {x.dtype}, {Bm.dtype}, {Cm.dtype}; the kernel "
-                         f"takes one dtype of {list(DTYPE_CODES)} for the three")
+                         f"takes one dtype of {list(ROUTES)} for the three")
     if (dt.shape != (b, s, h) or A.shape != (h,) or D.shape != (h,)
             or Bm.shape != (b, s, n) or Cm.shape != Bm.shape
             or (h0 is not None and h0.shape != (b, h, p, n))):
@@ -74,6 +118,13 @@ def _check(x, dt, A, Bm, Cm, D, h0, chunk):
     for arg, t in (("A", A), ("D", D), ("h0", h0)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"ssd: {arg} with strides {t.stride()} is not contiguous")
+    if route(x.dtype) == "mma":
+        # TMA and 16-byte copies: rows start 16-byte aligned.
+        for arg, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+            strides = t.stride()[1:-1] + (t.stride(0),) * (b > 1)
+            if t.data_ptr() % 16 or any(st % 8 for st in strides):
+                raise ValueError(f"ssd: bf16 {arg} at offset {t.data_ptr() % 16} with strides "
+                                 f"{t.stride()}: the kernel needs 16-byte aligned rows")
 
 
 def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
@@ -87,19 +138,20 @@ def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
     _check(x, dt, A, Bm, Cm, D, h0, chunk)
     b, s, h, p = x.shape
     n = Bm.shape[-1]
-    nc = -(-s // KERNEL_CHUNK)
+    pl = plan(b, s, h, p, n, x.dtype)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     h_final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    states = torch.empty((b, h, nc, p, n), dtype=torch.float32, device=x.device)
-    a_tot = torch.empty((b, h, nc), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel()(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device) for shape in pl.scratch]
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_final.data_ptr(), states.data_ptr(), a_tot.data_ptr(),
-            DTYPE_CODES[x.dtype], b, s, h, p, n, *x.stride()[:3], *dt.stride()[:2],
-            *Bm.stride()[:2], *Cm.stride()[:2], stream_handle(x),
-        )
+            h_final.data_ptr())
+    strides = (*x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2])
+    with torch.cuda.device(x.device):
+        if pl.route == "mma":
+            err = _kernel("mma")(*ptrs, b, s, h, p, n, *pl.grid, *strides, stream_handle(x))
+        else:
+            err = _kernel("fma")(*ptrs, *(t.data_ptr() for t in scratch), DTYPE_CODES[x.dtype],
+                                 b, s, h, p, n, *strides, stream_handle(x))
     raise_on_error("ssd", err)
     global launches
     launches += 1

@@ -255,16 +255,77 @@ def test_ssd_kernel_at_mamba_width(s, card):
                       ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128), torch.bfloat16)
 
 
-def test_ssd_kernel_reads_strided_views(card):
+# tests/test_kernels.py's SSD cases, then test_ssd_initial_state's.
+SSD_KERNEL_CASES = [
+    # (b, s, h, p, n, chunk, h0)
+    (2, 128, 4, 32, 16, 32, False),
+    (1, 96, 2, 64, 32, 32, False),
+    (2, 64, 8, 16, 8, 16, False),
+    (1, 100, 2, 32, 16, 32, False),
+    (1, 64, 2, 16, 8, 16, True),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", SSD_KERNEL_CASES)
+def test_ssd_routes_at_the_kernel_cases(case, dtype, card):
+    """bf16 on the tensor-core kernel, float32 on the FMA kernel, one count
+    per call, against the plain scan at the caller's chunk."""
+    b, s, h, p, n, chunk, with_h0 = case
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(card, b, s, h, p, n, dtype, with_h0)
+    assert ssd_scan.route(dtype) == {torch.bfloat16: "mma", torch.float32: "fma"}[dtype]
+    before = ssd_scan.launches
+    got = ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    _assert_ssd_close(got, ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk), dtype)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 500])
+def test_ssd_mma_ragged_lengths_at_mamba_width(s, card):
+    """Lengths around the kernel's 64-token chunk, at mamba2-370m's widths."""
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(card, 1, s, 32, 64, 128, torch.bfloat16, h0=s == 65)
+    _assert_ssd_close(ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=h0, chunk=128),
+                      ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, h0=h0, chunk=128),
+                      torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [8, 16, 128])
+@pytest.mark.parametrize("p", [16, 32, 64])
+def test_ssd_mma_head_and_state_dims(p, n, card):
+    """Every P the kernel takes (1, 2 or 4 blocks per head) and N padded in
+    shared memory (8) or not (16, 128), from an initial state."""
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(card, 2, 150, 3, p, n, torch.bfloat16, h0=True)
+    _assert_ssd_close(ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=h0),
+                      ssd_ref.ssd_naive(x, dt, A, Bm, Cm, D, h0=h0), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ssd_kernel_reads_strided_views(dtype, card):
     """x, B and C as the model hands them: column slices of one projection."""
     b, s, h, p, n = 2, 90, 4, 32, 16
-    proj = torch.randn((b, s, h * p + 2 * n), generator=card, device="cuda") * 0.5
+    proj = (torch.randn((b, s, h * p + 2 * n), generator=card, device="cuda") * 0.5).to(dtype)
     x = proj[..., :h * p].reshape(b, s, h, p)
     Bm, Cm = proj[..., h * p:h * p + n], proj[..., h * p + n:]
     _, dt, A, _, _, D, _ = _ssd_inputs(card, b, s, h, p, n, torch.float32)
     assert not x.is_contiguous() and not Bm.is_contiguous()
     _assert_ssd_close(ssd_scan.ssd(x, dt, A, Bm, Cm, D),
-                      ssd_ref.ssd_naive(x, dt, A, Bm, Cm, D), torch.float32)
+                      ssd_ref.ssd_naive(x, dt, A, Bm, Cm, D), dtype)
+
+
+def test_ssd_bf16_is_one_launch_per_call(card):
+    """One device kernel per bf16 call: no scratch pass, no state walk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(card, 1, 512, 32, 64, 128, torch.bfloat16)
+    assert ssd_scan.plan(1, 512, 32, 64, 128, torch.bfloat16).scratch == ()
+    ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=128)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=128)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 and all("ssd_sm90_kernel" in nm for nm in names), names
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -287,6 +348,14 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(card):
         ssd_scan.ssd(x, dt[:, :10], A, Bm, Cm, D)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=torch.zeros((1, 2, 32, 16)))
+    xb, Bb, Cb = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan.ssd(torch.cat([xb, xb[..., :8]], -1), dt, A, Bb, Cb, D)
+    with pytest.raises(ValueError, match="strided last dim"):
+        ssd_scan.ssd(xb, dt, A, wide.bfloat16()[..., ::2], Cb, D)
+    proj = torch.zeros((1, 64, 2 * 12), dtype=torch.bfloat16, device="cuda")  # N = 12
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan.ssd(xb, dt, A, proj[..., :12], proj[..., 12:], D)
 
 
 def test_mamba_prefill_goes_through_the_kernel(card):

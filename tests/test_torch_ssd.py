@@ -1,6 +1,9 @@
 """The port's plain SSD scan against the JAX package's plain versions and its
 Pallas kernel (run in interpret mode, as tests/test_kernels.py runs it),
-plus the dispatch rules of ``repro_torch.kernels.ssd.ops``."""
+the dispatch rules of ``repro_torch.kernels.ssd.ops``, the launch plan of
+each dtype's route, and an emulation of the bf16 kernel's rounding points."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -131,3 +134,127 @@ def test_explicit_kernel_route_raises_off_the_card():
         ops.ssd(*t, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.ssd(*t, impl="pallas")
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 32, 64, 128), (2, 100, 3, 32, 24), (1, 1, 2, 16, 8)])
+def test_each_dtype_plans_its_own_kernel(shape):
+    """bf16 -> the one-launch tensor-core kernel, one block per 16 P columns
+    of each head and batch row, no scratch; float32 -> the three-pass FMA
+    kernel with its chunk states in scratch; anything else raises."""
+    b, s, h, p, n = shape
+    mma = ssd_scan.plan(b, s, h, p, n, torch.bfloat16)
+    assert (mma.route, mma.grid, mma.kernels, mma.scratch) == ("mma", (p // 16, h, b), 1, ())
+    nc = -(-s // 64)
+    fma = ssd_scan.plan(b, s, h, p, n, torch.float32)
+    assert (fma.route, fma.grid, fma.kernels) == ("fma", (nc, h, b), 3)
+    assert fma.scratch == ((b, h, nc, p, n), (b, h, nc))
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan.plan(b, s, h, p, n, torch.float16)
+
+
+# The bf16 kernel's rounding points (csrc/ssd_scan_sm90.cu), emulated: chunks
+# of 64, a_cum in double, the gate's exponent a_cum_t − a_cum_s in log2
+# units from float hi + lo pairs, every product a bf16 x bf16 -> f32 tensor-core
+# product, and the three float32 operands split into bf16 parts, one product
+# each: the gated scores W into three, the weighted inputs x∘w and the
+# carried state h into two.  The card's tolerance (chip_smoke.py's SSD_ATOL,
+# SSD_WIDE_RTOL): y within 5e-2 beyond one bfloat16 step of |y| (2^-7), the
+# final state within 5e-2.
+CARD_ATOL, CARD_RTOL = 5e-2, 2.0 ** -7
+KERNEL_PARTS = {"W": 3, "xw": 2, "h": 2}
+
+
+def _parts(v, k):
+    """``k`` bf16 values (as float32) whose sum is ``v`` to ~8k bits."""
+    out = []
+    for _ in range(k):
+        out.append(v.bfloat16().float())
+        v = v - out[-1]
+    return out
+
+
+def _emulate_bf16_route(x, dt, A, Bm, Cm, D, h0=None, parts=None, q=64):
+    parts = parts or KERNEL_PARTS
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    pad = -s % q
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    Bf = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(Cm.float(), (0, 0, 0, pad))
+    state = torch.zeros((b, h, p, n)) if h0 is None else h0.float().clone()
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    ys = []
+    for c0 in range(0, s + pad, q):
+        xc = xf[:, c0:c0 + q].transpose(1, 2)                        # (B,H,Q,P)
+        d = dtf[:, c0:c0 + q].transpose(1, 2)                        # (B,H,Q)
+        Bc, Cc = Bf[:, None, c0:c0 + q], Cf[:, None, c0:c0 + q]      # (B,1,Q,N)
+        acum = torch.cumsum((A[None, :, None].float() * d).double(), -1)
+        a_tot = acum[..., -1:]
+        l2 = acum * math.log2(math.e)                                 # a_cum·log2(e) as hi + lo
+        hi, lo = l2.float(), (l2 - l2.float().double()).float()
+        seg = (hi[..., :, None] - hi[..., None, :]) + (lo[..., :, None] - lo[..., None, :])
+        W = (Cc @ Bc.transpose(-1, -2)) * torch.where(tri, torch.exp2(torch.where(tri, seg, 0.0)),
+                                                      0.0) * d[..., None, :]
+        y_in = sum(w @ xc for w in _parts(W, parts["W"]))
+        y_out = sum(Cc @ hp.transpose(-1, -2) for hp in _parts(state, parts["h"]))
+        ys.append(y_in + torch.exp(acum.float())[..., None] * y_out
+                  + D[None, :, None, None].float() * xc)
+        xw = xc * (torch.exp((a_tot - acum).float()) * d)[..., None]
+        state = (torch.exp(a_tot.float())[..., None] * state
+                 + sum(xp.transpose(-1, -2) @ Bc for xp in _parts(xw, parts["xw"])))
+    return torch.cat(ys, 2).transpose(1, 2)[:, :s].to(x.dtype), state
+
+
+def _bf16_inputs(b, s, h, p, n, seed, h0=False):
+    t = [torch.from_numpy(a) for a in _inputs(b, s, h, p, n, seed=seed, h0=h0)]
+    for i in (0, 3, 4):
+        t[i] = t[i].bfloat16()
+    return t
+
+
+def _excess(got, want):
+    (gy, gh), (wy, wh) = got, want
+    dy = (gy.float() - wy.float()).abs() - CARD_RTOL * wy.float().abs()
+    return float(dy.max()), float((gh - wh).abs().max())
+
+
+@pytest.mark.parametrize("case", [
+    # (b, s, h, p, n, h0): mamba2-370m at S = 512, a ragged one with h0, small
+    (1, 512, 32, 64, 128, False),
+    (1, 129, 32, 64, 128, True),
+    (2, 100, 3, 32, 24, True),
+])
+def test_bf16_route_rounding_holds_the_card_tolerance(case):
+    *shape, with_h0 = case
+    args = _bf16_inputs(*shape, seed=sum(shape), h0=with_h0)
+    want = ref.ssd_chunked(*args[:6], h0=args[6] if with_h0 else None, chunk=128)
+    got = _emulate_bf16_route(*args[:6], h0=args[6] if with_h0 else None)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    y_excess, h_err = _excess(got, want)
+    assert y_excess <= CARD_ATOL and h_err <= CARD_ATOL, (y_excess, h_err)
+
+
+def test_rounding_the_float32_operands_once_misses_the_card_tolerance():
+    """Why W, x∘w and h go in as hi + lo pairs: rounded once to bf16, y at
+    mamba2-370m's widths leaves the tolerance."""
+    args = _bf16_inputs(1, 512, 32, 64, 128, seed=0)
+    want = ref.ssd_chunked(*args, chunk=128)
+    once = {"W": 1, "xw": 1, "h": 1}
+    y_excess, _ = _excess(_emulate_bf16_route(*args, parts=once), want)
+    assert y_excess > CARD_ATOL
+
+
+def test_three_parts_of_w_bring_the_error_to_the_plain_versions_own():
+    """Why W takes three parts: with two, y before its rounding to bf16 is
+    ~2x further from a float64 scan than the float32 plain version is, and
+    at |y| > 8 that flips elements by a whole bf16 step (0.0625 > 5e-2)."""
+    args = [t.float() for t in _bf16_inputs(2, 128, 4, 32, 16, seed=1)]
+    exact = ref.ssd_chunked(*[t.double() for t in args], chunk=64)[0]
+    plain_err = float((ref.ssd_chunked(*args, chunk=32)[0].double() - exact).abs().max())
+
+    def err(w_parts):
+        y, _ = _emulate_bf16_route(*args, parts=dict(KERNEL_PARTS, W=w_parts))
+        return float((y.double() - exact).abs().max())
+
+    assert err(3) <= 1.5 * plain_err < err(2)
