@@ -34,12 +34,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    just after: ``build_engine`` over the dense Table I fleet at full width,
    then the reference's two-agent engine fleet (``tests/test_serving.py``:
    minitron-4b and mamba2-370m) at full width.
-6. Profile: full-width granite-8b decode steps (4 rows, a 300-entry
+6. The serverless layers: ``table2`` runs every registered policy through
+   the simulator on the card (Table II's fleet and workload), its step loop
+   under sync debug mode "error", checks the Table II anchors and each
+   trace against the CPU's, then all three layers on (a coordinator star,
+   a reactive pool, the ``chaos`` scenario) and the conservation of queue
+   mass with capacity and failures on; ``serverless_engine`` serves the
+   full-width dense fleet with routing, a reactive warm pool and failures
+   on (launch counters zeroed and read as in phase 5), and checks that the
+   same engine at reduced widths on the CPU schedules exactly as the card.
+7. Profile: full-width granite-8b decode steps (4 rows, a 300-entry
    cache) on the host clock and in ``torch.profiler``: the device's busy
    share of a step; then checks that a decode call with an int length is
    one device kernel, and that a bf16 SSD call is one device kernel that
    allocates only its outputs, with the SSD device time of a full-width
-   mamba2-370m prefill of 512 tokens.
+   mamba2-370m prefill of 512 tokens; last, the device kernels per step and
+   the busy share of a Table II ``simulate`` under ``adaptive``.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -581,10 +591,32 @@ def _launch_counters():
     return {"flash_attention": fa, "decode_attention": da, "ssd": ssd_scan}
 
 
-def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513)) -> dict:
+def submit_tick(eng, arrivals) -> None:
+    """Submit one tick of a pre-drawn schedule: (agent, raw token ids, new
+    tokens) triples, the ids taken modulo the smallest vocabulary of
+    ``eng``'s agents, so engines over different widths get the same
+    prompt lengths."""
+    vocab = min(rt.api.cfg.vocab_size for rt in eng.runtimes)
+    for name, ids, new in arrivals:
+        eng.submit(name, ids % vocab, new)
+
+
+def poisson_schedule(rates: dict, ticks: int = 8, prompt=(64, 513), new: int = 32,
+                     seed: int = 0) -> list:
+    """Poisson arrivals at ``rates`` per agent and tick, prompts of ``prompt``
+    tokens (raw ids below 2^31), ``new`` new tokens each."""
+    rng = np.random.default_rng(seed)
+    return [[(name, rng.integers(0, 2**31, int(rng.integers(*prompt))), new)
+             for name, rate in rates.items() for _ in range(rng.poisson(rate))]
+            for _ in range(ticks)]
+
+
+def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513),
+          schedule=None) -> dict:
     """Drive ``eng`` for ``ticks`` ticks of Poisson arrivals at ``rates`` per
-    agent, prompts of ``prompt`` tokens and 32 new tokens each; check what
-    comes out and return the kernels' launches and the prefill counts."""
+    agent, prompts of ``prompt`` tokens and 32 new tokens each (or of the
+    pre-drawn ``schedule``, see ``submit_tick``); check what comes out and
+    return the kernels' launches and the prefill counts."""
     print(f"{label}: {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
     finite = [torch.ones((), dtype=torch.bool, device=DEVICE)]
     # calls and seconds (host clock, synced) per agent and kind
@@ -611,9 +643,12 @@ def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513)) -> dic
     for mod in counters.values():
         mod.launches = 0
     for tick in range(ticks):
-        for name in eng.fleet.names:
-            for _ in range(rng.poisson(rates[name])):
-                eng.submit(name, rng.integers(0, vocab, int(rng.integers(*prompt))), 32)
+        if schedule is not None:
+            submit_tick(eng, schedule[tick])
+        else:
+            for name in eng.fleet.names:
+                for _ in range(rng.poisson(rates[name])):
+                    eng.submit(name, rng.integers(0, vocab, int(rng.integers(*prompt))), 32)
         before = {n: {k: list(v) for k, v in kinds.items()} for n, kinds in spent.items()}
         t = time.perf_counter()
         eng.step()
@@ -628,7 +663,9 @@ def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513)) -> dic
               "prefill_calls": total["prefill_calls"], "prefill_s": total["prefill_s"],
               "decode_steps": total["decode_calls"], "decode_s": total["decode_s"],
               "other_s": tick_s[-1] - total["prefill_s"] - total["decode_s"],
-              "tokens": eng.history[-1]["decode_tokens"], "per_agent": per_agent})
+              "tokens": eng.history[-1]["decode_tokens"], "per_agent": per_agent,
+              **{k: eng.history[-1][k] for k in ("warm", "pending", "revoked_frac", "down",
+                                                 "routed")}})
     launches = {name: mod.launches for name, mod in counters.items()}
     m = eng.metrics()
     emit({"phase": "engine", "fleet": label, "metrics": _finite(m), "launches": launches,
@@ -637,7 +674,9 @@ def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513)) -> dic
     check(m["completed"] > 0, f"{label}: no request completed")
     check(bool(finite[0]), f"{label}: non-finite logits in the engine")
     for h in eng.history:
-        check(sum(h["allocation"]) <= 1.0 + 1e-6, f"{label} tick {h['tick']}: Σ allocation > 1")
+        budget = h["warm"] * (1.0 - h["revoked_frac"])
+        check(sum(h["allocation"]) <= budget + 1e-6,
+              f"{label} tick {h['tick']}: Σ allocation > warm · (1 - revoked) = {budget}")
     return {"launches": launches, "prefills": {n: k["prefill"][0] for n, k in spent.items()},
             "completed": {n: sum(r.agent == n for r in eng.completed) for n in eng.fleet.names}}
 
@@ -690,7 +729,215 @@ def phase_two_agent_engine(reduced: bool = False, max_len: int = 1024,
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: where a decode step's time goes
+# Phase 6: the serverless layers (the simulator's Table II, the engine)
+# ---------------------------------------------------------------------------
+
+def _simulate_on_card(policy, arrivals, fleet, config, **layers):
+    """One ``simulate`` on the card with its step loop under sync debug mode
+    "error" (any host sync inside the loop raises); returns the trace and
+    the wall time of the loop up to the device's last kernel."""
+    from repro_torch.core import simulator
+
+    args = simulator.simulate_inputs(policy, arrivals, fleet, config, device=DEVICE, **layers)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trace = simulator.simulate_core(**args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return trace, time.perf_counter() - t
+
+
+def _trace_gap(card, cpu) -> float:
+    """Largest distance of the card's trace from the CPU's, in units of the
+    tolerance rtol 1e-5 with an atol of 1e-5 of each field's largest
+    magnitude (the form of tests/test_failures.py's 5e-3 tolerance: a
+    float32 difference of operands carries their rounding, not the
+    result's); at most 1 means within.  The two devices sum small vectors
+    in different orders, so last-bit differences start at step 0."""
+    worst = 0.0
+    for field, want in cpu.fields().items():
+        got, want = card.fields()[field].cpu().double(), want.double()
+        atol = 1e-5 * max(float(want.abs().max()), 1.0)
+        worst = max(worst, float(((got - want).abs() / (atol + 1e-5 * want.abs())).max()))
+    return worst
+
+
+def phase_table2() -> dict:
+    """Table II on the card: every registered policy through the port's
+    ``simulate`` on ``paper_fleet()`` and the paper's constant workload;
+    the anchors, rounded as ``benchmarks/table2_metrics.py`` rounds them;
+    each trace against the port's CPU trace; then once with all three
+    serverless layers on (a coordinator star, a reactive pool with a 3 s
+    cold start, the ``chaos`` scenario), and once with capacity and
+    failures on, where the card's run must conserve queue mass.  Returns each
+    policy's wall time of one ``simulate`` (the median of three)."""
+    from repro_torch.core import agents, allocator as alloc, capacity, failures, routing
+    from repro_torch.core import simulator, workload
+
+    fleet = agents.paper_fleet()
+    arr = workload.constant(agents.PAPER_ARRIVAL_RATES, 100)
+    config = simulator.SimConfig()
+    rows, walls = {}, {}
+    for policy in alloc.policy_names():
+        _simulate_on_card(policy, arr, fleet, config)  # first run: lazy loads, not timed
+        runs = [_simulate_on_card(policy, arr, fleet, config) for _ in range(3)]
+        trace, wall = runs[0][0], statistics.median(r[1] for r in runs)
+        walls[policy] = wall
+        cpu = simulator.simulate(policy, arr, fleet, config, device="cpu")
+        s = simulator.summarize(policy, trace, config, fleet.active)
+        rows[policy] = s
+        gap = _trace_gap(trace, cpu)
+        emit({"phase": "table2", "policy": policy, "avg_latency": s.avg_latency,
+              "latency_std": s.latency_std, "total_throughput": s.total_throughput,
+              "cost": s.cost, "simulate_s": wall, "steps": arr.shape[0],
+              "trace_gap_vs_cpu": gap})
+        check(gap <= 1.0, f"table2 {policy}: the card's trace is {gap} tolerances from the CPU's")
+    check(round(rows["static_equal"].avg_latency, 1) == 110.3, "table2: static_equal latency")
+    check(round(rows["adaptive"].avg_latency, 1) == 111.9, "table2: adaptive latency")
+    check(round(rows["adaptive"].total_throughput, 2) == 58.12, "table2: adaptive throughput")
+    check(abs(round(rows["round_robin"].avg_latency, 1) - 756.1) <= 1.0,
+          "table2: round_robin latency")
+    check(all(round(r.cost, 3) == 0.020 for r in rows.values()), "table2: cost")
+
+    elastic = simulator.SimConfig(num_gpus=8.0)
+    chaos = failures.failure_scenario_library()[-1]
+    reactive = capacity.capacity_config("reactive", cold_start_s=3.0, min_instances=1.0)
+    layers = {"workflow": routing.coordinator_star(4), "capacity": reactive, "failures": chaos}
+    for policy in alloc.policy_names():
+        trace, wall = _simulate_on_card(policy, arr, fleet, elastic, **layers)
+        gap = _trace_gap(trace, simulator.simulate(policy, arr, fleet, elastic, device="cpu",
+                                                   **layers))
+        s = simulator.summarize(policy, trace, elastic, fleet.active, layers["workflow"])
+        emit({"phase": "table2_serverless", "policy": policy, "avg_latency": s.avg_latency,
+              "sink_throughput": s.sink_throughput, "cost": s.cost,
+              "mean_warm_instances": s.mean_warm_instances, "dropped": s.dropped,
+              "slo_violations": s.slo_violations, "simulate_s": wall,
+              "trace_gap_vs_cpu": gap})
+        check(gap <= 1.0, f"table2 all layers {policy}: {gap} tolerances from the CPU's trace")
+
+    trace, _ = _simulate_on_card("adaptive", arr, fleet, elastic, capacity=reactive,
+                                 failures=chaos)
+    arrived, served = float(trace.arrivals.sum()), float(trace.served.sum())
+    dropped, final_q = float(trace.dropped.sum()), float(trace.queue[-1].sum())
+    slack = arr.shape[0] * fleet.num_agents * 1e-4 + 0.05  # tests/test_failures.py
+    emit({"phase": "table2_conservation", "arrived": arrived, "served": served,
+          "dropped": dropped, "final_queue": final_q,
+          "imbalance": arrived - served - dropped - final_q, "slack": slack})
+    check(dropped > 0, "table2: the chaos scenario dropped nothing")
+    check(abs(arrived - served - dropped - final_q) <= slack + 1e-3 * arrived,
+          "table2: queue mass is not conserved on the card")
+    return walls
+
+
+def profile_simulator(host_s: float, policy: str = "adaptive") -> None:
+    """Device kernels per simulated step and the device's busy share of a
+    Table II ``simulate`` on the card: ``host_s`` is its wall time taken by
+    ``phase_table2`` before the profiler attached (the profiler slows every
+    later launch on the host), the device time comes from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import agents, simulator, workload
+
+    fleet = agents.paper_fleet()
+    arr = workload.constant(agents.PAPER_ARRIVAL_RATES, 100)
+    args = simulator.simulate_inputs(policy, arr, fleet, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        simulator.simulate_core(**args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    steps = arr.shape[0]
+    emit({"phase": "simulator_profile", "policy": policy, "steps": steps,
+          "host_s": host_s, "host_ms_per_step": host_s / steps * 1e3,
+          "device_ms_per_step": device_s / steps * 1e3, "busy_share": device_s / host_s,
+          "device_kernels_per_step": len(kernels) / steps})
+    check(kernels, "the profiler saw no device kernel in a simulate")
+
+
+# The serverless engine: a coordinator star whose every finished
+# coordinator request spawns one child at each specialist, a reactive pool
+# of up to 2 instances with a 2-tick cold start, and failures (a revocation
+# chain, a scheduled outage of agent 2 in ticks 3-4, deadlines of 4 ticks
+# with one retry).  SERVERLESS_SEED is the failure seed, chosen so that the
+# revocation chain turns on within the 8 ticks.
+SERVERLESS_SEED = 0
+SERVERLESS_HISTORY = ("allocation", "queues", "decode_tokens", "routed", "warm", "pending",
+                      "revoked_frac", "down")
+
+
+def serverless_engine(reduced: bool, device, budget_tokens: int = 1024, max_len: int = 1024):
+    """The dense fleet (``build_engine``'s runtimes) under a ``FleetEngine``
+    with all three serverless layers on; ``budget_tokens`` is per instance."""
+    from repro_torch.core import capacity, failures, routing
+    from repro_torch.launch.serve import DENSE_FLEET, build_engine
+    from repro_torch.serving.engine import FleetEngine
+
+    base = build_engine("adaptive", reduced=reduced, fleet=DENSE_FLEET,
+                        budget_tokens=budget_tokens, max_len=max_len, batch_slots=4,
+                        device=device)
+    return FleetEngine(
+        base.fleet, {rt.name: rt for rt in base.runtimes}, policy="adaptive",
+        budget_tokens=budget_tokens, g_total=1.0, num_gpus=2.0,
+        workflow=routing.coordinator_star(base.fleet.num_agents, fan_out=3.0),
+        capacity=capacity.capacity_config("reactive", cold_start_s=2,
+                                          target_rate_per_instance=4,
+                                          backlog_per_instance=8, min_instances=1),
+        failures=failures.failure_spec("smoke", revoke_p_enter=0.2, revoke_p_exit=0.5,
+                                       revoke_frac=0.5, outage_start=3, outage_len=2,
+                                       outage_agent=2, deadline_s=4, retry_budget=1,
+                                       seed=SERVERLESS_SEED),
+        device=device,
+    )
+
+
+def check_serverless(hist: list, m: dict, label: str) -> None:
+    """What the serverless engine must show, on the card and in its CPU twin."""
+    check(m["routed_requests"] > 0 and m["sink_completed"] > 0,
+          f"{label}: no routed request reached a sink")
+    check(any(h["warm"] > 1.0 for h in hist[2:]), f"{label}: the pool never grew past 1")
+    check(any(h["revoked_frac"] > 0 for h in hist), f"{label}: nothing was revoked")
+    for t in (3, 4):
+        check(hist[t]["down"] >= 1 and hist[t]["decode_tokens"][2] == 0,
+              f"{label}: agent 2 ran during its outage (tick {t})")
+    check(0 < hist[3]["queues"][2] <= hist[4]["queues"][2],
+          f"{label}: agent 2 lost its queue during the outage")
+
+
+def phase_serverless_engine(ticks: int = 8) -> dict:
+    """The full-width dense fleet with routing, the reactive warm pool and
+    failures on, then the same engine at reduced widths on the CPU over the
+    same arrival schedule: the schedule depends on prompt lengths, token
+    counts, budgets, slots and ``max_len``, never on the logits, so every
+    scheduling field of the history and ``metrics()`` must be equal."""
+    t0 = time.perf_counter()
+    eng = serverless_engine(reduced=False, device=DEVICE)
+    print(f"serverless engine built in {time.perf_counter() - t0:.1f} s", flush=True)
+    schedule = poisson_schedule({"coordinator": 3}, ticks=ticks)
+    out = drive(eng, {}, "serverless", ticks=ticks, schedule=schedule)
+    for name in ("flash_attention", "decode_attention"):
+        check(out["launches"][name] > 0, f"{name} was never launched on the serverless fleet")
+    check_serverless(eng.history, eng.metrics(), "serverless")
+
+    t0 = time.perf_counter()
+    twin = serverless_engine(reduced=True, device="cpu")
+    for tick in range(ticks):
+        submit_tick(twin, schedule[tick])
+        twin.step()
+    same = {k: [h[k] for h in eng.history] == [h[k] for h in twin.history]
+            for k in SERVERLESS_HISTORY}
+    same["metrics"] = _finite(eng.metrics()) == _finite(twin.metrics())
+    emit({"phase": "serverless_schedule", "same_as_cpu": same,
+          "cpu_twin_s": time.perf_counter() - t0, "metrics_cpu": _finite(twin.metrics())})
+    check(all(same.values()), f"serverless: the card and the CPU schedule differently: {same}")
+    return out["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
 def phase_profile(arch: str = "granite-8b", batch: int = 4, prompt_len: int = 300,
@@ -764,11 +1011,16 @@ def main() -> None:
     two_agent = phase_two_agent_engine()
     gc.collect()
     torch.cuda.empty_cache()
+    sim_walls = phase_table2()
+    serverless = phase_serverless_engine()
+    gc.collect()
+    torch.cuda.empty_cache()
     # Last: the profiler's device tracing, once started, stays attached to
     # the process and would slow every later launch on the host.
     phase_profile()
     check_decode_launches()
     check_ssd_launches()
+    profile_simulator(sim_walls["adaptive"])
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",
@@ -784,7 +1036,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": two_agent[name],
-            "launches_by_fleet": {"dense": dense[name], "two_agent": two_agent[name]},
+            "launches_by_fleet": {"dense": dense[name], "two_agent": two_agent[name],
+                                  "serverless": serverless[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["case"], "dtype": row["dtype"],

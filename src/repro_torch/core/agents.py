@@ -77,6 +77,14 @@ class Fleet:
             priority=_f32([s.priority for s in specs]),
         )
 
+    def to(self, device) -> "Fleet":
+        """The fleet with its tensors on ``device`` (the simulator's card)."""
+        move = lambda x: x.to(device)
+        return dataclasses.replace(
+            self, model_size_mb=move(self.model_size_mb),
+            base_throughput=move(self.base_throughput), min_gpu=move(self.min_gpu),
+            priority=move(self.priority), active=move(self.active))
+
     def validate(self) -> None:
         """Static sanity constraints."""
         mins = self.min_gpu.cpu().numpy()
@@ -128,6 +136,10 @@ def pad_fleet(fleet: Fleet, n_max: int) -> Fleet:
         active=ext(fleet.active, 0.0),
     )
 
+
+# Paper §IV-A arrival rates (requests/second); they total
+# ``workload.PAPER_TOTAL_RATE``.
+PAPER_ARRIVAL_RATES = (80.0, 40.0, 45.0, 25.0)
 
 # Paper platform model: NVIDIA T4, $0.72/hour.
 T4_PRICE_PER_HOUR = 0.72

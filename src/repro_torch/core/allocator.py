@@ -32,8 +32,14 @@ _EPS = 1e-9
 
 
 def _like(x, ref: torch.Tensor) -> torch.Tensor:
-    """``x`` (python number or tensor) as a tensor of ``ref``'s dtype/device."""
-    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    """``x`` (python number or tensor) as a tensor of ``ref``'s dtype/device.
+
+    A python number becomes a fill on ``ref``'s device rather than a copy
+    from the host, so the simulator's step loop on the card never syncs.
+    """
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=ref.dtype, device=ref.device)
+    return torch.full((), x, dtype=ref.dtype, device=ref.device)
 
 
 def _normalize_capacity(g: torch.Tensor, g_total) -> torch.Tensor:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_map
@@ -29,8 +30,10 @@ def _tensor(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
-    """Reference parameter tree (numpy leaves) -> the port's parameter tree."""
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """Reference parameter tree (numpy leaves) -> the port's parameter tree,
+    on ``device`` (``cuda`` unless the caller asks for the host)."""
+    device = resolve_device(device)
     pat = transformer.block_pattern(cfg)
     n_super, rem = transformer.super_counts(cfg)
     stacked = [f"b{i}_{kind}" for i, kind in enumerate(pat)]

@@ -5,11 +5,14 @@ and run on an H100 with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import json
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config
+from repro_torch.core import allocator as alloc
 from repro_torch.kernels.attention import decode_attention as da
 from repro_torch.kernels.attention import flash_attention as fa
 from repro_torch.kernels.attention import ops, ref
@@ -371,3 +374,104 @@ def test_mamba_prefill_goes_through_the_kernel(card):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     for c, r in zip(caches["blocks"], ref_caches["blocks"]):
         torch.testing.assert_close(c["h"], r["h"], atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The serverless layers on the card: the simulator's step loop and the
+# engine's scheduling agree with the CPU.
+# ---------------------------------------------------------------------------
+
+def _serverless_layers():
+    from repro_torch.core import capacity, failures, routing
+
+    return {"workflow": routing.coordinator_star(4),
+            "capacity": capacity.capacity_config("reactive", cold_start_s=3.0,
+                                                 min_instances=1.0),
+            "failures": failures.failure_scenario_library(seed=1)[-1]}
+
+
+@pytest.mark.parametrize("layers", ["none", "all"])
+@pytest.mark.parametrize("policy", alloc.policy_names())
+def test_simulate_on_the_card_matches_the_cpu(policy, layers, card):
+    """Every registered policy, with no serverless layer and with all three
+    on: the card's trace equals the CPU's within rtol 1e-5 (atol 1e-5)."""
+    import numpy as np
+
+    from repro_torch.core import agents, simulator
+
+    arr = np.random.default_rng(0).poisson(
+        np.asarray(agents.PAPER_ARRIVAL_RATES) * 2.0, (60, 4)).astype(np.float32)
+    kw = {} if layers == "none" else _serverless_layers()
+    config = simulator.SimConfig(num_gpus=8.0)
+    fleet = agents.paper_fleet()
+    got = simulator.simulate(policy, arr, fleet, config, **kw)
+    want = simulator.simulate(policy, arr, fleet, config, device="cpu", **kw)
+    for field, w in want.fields().items():
+        g = got.fields()[field]
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5, msg=field)
+
+
+def test_reduced_serverless_engine_schedules_identically_on_both_devices(card):
+    """The dense fleet at reduced widths with routing, a reactive pool and
+    failures on: the scheduling fields of the history and ``metrics()``
+    are equal on the card and on the CPU (the schedule never reads the
+    logits)."""
+    import numpy as np
+
+    from repro_torch.core import capacity, failures, routing
+    from repro_torch.launch.serve import DENSE_FLEET, build_engine
+    from repro_torch.serving.engine import FleetEngine
+
+    def engine(device):
+        base = build_engine("adaptive", fleet=DENSE_FLEET, budget_tokens=64, max_len=64,
+                            batch_slots=2, device=device)
+        return FleetEngine(
+            base.fleet, {rt.name: rt for rt in base.runtimes}, budget_tokens=64,
+            num_gpus=2.0, workflow=routing.coordinator_star(4, fan_out=3.0),
+            capacity=capacity.capacity_config("reactive", cold_start_s=2,
+                                              target_rate_per_instance=2,
+                                              backlog_per_instance=4, min_instances=1),
+            failures=failures.failure_spec("x", revoke_p_enter=0.3, revoke_p_exit=0.5,
+                                           revoke_frac=0.5, outage_start=3, outage_len=2,
+                                           outage_agent=2, deadline_s=3, retry_budget=1),
+            device=device)
+
+    engines = engine("cuda"), engine("cpu")
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        for _ in range(rng.poisson(2)):
+            prompt, new = rng.integers(0, 512, int(rng.integers(3, 20))), int(rng.integers(2, 6))
+            for eng in engines:
+                eng.submit("coordinator", prompt, new)
+        for eng in engines:
+            eng.step()
+    card_eng, cpu_eng = engines
+    keys = ("allocation", "queues", "decode_tokens", "routed", "warm", "pending",
+            "revoked_frac", "down")
+    for h_card, h_cpu in zip(card_eng.history, cpu_eng.history):
+        assert {k: h_card[k] for k in keys} == {k: h_cpu[k] for k in keys}
+    m_card, m_cpu = card_eng.metrics(), cpu_eng.metrics()
+    assert m_card["routed_requests"] > 0
+    assert json.dumps(m_card, sort_keys=True) == json.dumps(m_cpu, sort_keys=True)
+
+
+@pytest.mark.parametrize("policy", ["adaptive", "sqrt_demand", "ema_water_filling"])
+def test_the_card_keeps_subnormals(policy, card):
+    """The port flushes no denormals on the card: float32 subnormals
+    survive its elementwise kernels, and a simulate whose rates are
+    subnormal (ROADMAP C's case) equals the CPU's."""
+    import numpy as np
+
+    from repro_torch.core import agents, simulator
+
+    tiny = torch.tensor([1e-45, 1.18e-38, 1e-40], dtype=torch.float32)
+    x = tiny.cuda()
+    assert torch.equal((x * 1.0).cpu(), tiny) and torch.equal((x + 0.0).cpu(), tiny)
+    assert ((x[1:] / 2).cpu() > 0).all()
+    arr = np.tile(np.asarray([1e-45, 100.0, 300.0, 1.18e-38], np.float32), (6, 1))
+    got = simulator.simulate(policy, arr, agents.paper_fleet())
+    want = simulator.simulate(policy, arr, agents.paper_fleet(), device="cpu")
+    for field, w in want.fields().items():
+        torch.testing.assert_close(got.fields()[field].cpu(), w, rtol=1e-5, atol=1e-5,
+                                   msg=field)

@@ -51,7 +51,7 @@ def test_prefill_and_decode_match_jax(arch):
     jax_api, jax_params, np_params = _jax_params(arch)
     cfg = get_config(arch, reduced=True)
     api = build_model(cfg)
-    params = params_from_numpy(np_params, cfg)
+    params = params_from_numpy(np_params, cfg, device="cpu")
     s = SEQ.get(arch, S)
     max_len = s + EXTRA
     batch = _batch(cfg, 0, s)
@@ -96,7 +96,7 @@ def test_bf16_parameters_convert_exactly():
     jax_api = jax_build_model(jax_get_config("granite-8b", reduced=True))
     tree = jax.tree_util.tree_map(np.asarray, jax_api.init(jax.random.key(0)))  # bf16
     cfg = get_config("granite-8b", reduced=True)
-    params = params_from_numpy(tree, cfg)
+    params = params_from_numpy(tree, cfg, device="cpu")
     w = params["blocks"][1]["attn"]["w_q"]
     assert w.dtype == torch.bfloat16 and len(params["blocks"]) == cfg.num_layers
     np.testing.assert_array_equal(
@@ -128,7 +128,7 @@ def test_ssm_parameters_convert_exactly():
     jax_api = jax_build_model(jax_get_config("mamba2-370m", reduced=True))
     tree = jax.tree_util.tree_map(np.asarray, jax_api.init(jax.random.key(0)))  # bf16
     cfg = get_config("mamba2-370m", reduced=True)
-    params = params_from_numpy(tree, cfg)
+    params = params_from_numpy(tree, cfg, device="cpu")
     assert len(params["blocks"]) == cfg.num_layers
     assert transformer.layer_kinds(cfg) == ["ssm"] * cfg.num_layers
     for i, block in enumerate(params["blocks"]):
@@ -148,7 +148,7 @@ def test_params_follow_the_reference_execution_order():
     tree = jax.tree_util.tree_map(
         np.asarray, jax_build_model(jcfg).init(jax.random.key(1), dtype=jnp.float32))
     assert sorted(tree["tail"]) == ["t0_rglru_mlp", "t1_rglru_mlp"]
-    params = params_from_numpy(tree, cfg)
+    params = params_from_numpy(tree, cfg, device="cpu")
     kinds = transformer.layer_kinds(cfg)
     assert kinds == ["rglru_mlp", "rglru_mlp", "attn_mlp"] * 2 + ["rglru_mlp"] * 2
     want = [tree["blocks"][name]["mlp"]["w_up"][i]
@@ -159,4 +159,4 @@ def test_params_follow_the_reference_execution_order():
         np.testing.assert_array_equal(block["mlp"]["w_up"].numpy(), w)
     assert "rec" in params["blocks"][6] and "attn" in params["blocks"][5]
     with pytest.raises(ValueError, match="expected"):
-        params_from_numpy({**tree, "tail": {}}, cfg)
+        params_from_numpy({**tree, "tail": {}}, cfg, device="cpu")

@@ -2,7 +2,9 @@
 parameters and submissions must give the same greedy token streams,
 allocations and metrics.  Two fleets: dense agents (granite-8b, qwen2-vl-2b),
 and the reference's own two-agent engine fleet (tests/test_serving.py:
-minitron-4b and mamba2-370m)."""
+minitron-4b and mamba2-370m).  The serverless layers (workflow routing, the
+warm pool, failures) are held the same way, each on its own and all three
+together."""
 import math
 
 import pytest
@@ -14,11 +16,15 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import get_config as jax_get_config
+from repro.core import capacity as jax_capacity
+from repro.core import failures as jax_failures
+from repro.core import routing as jax_routing
 from repro.core.agents import AgentSpec as JaxAgentSpec, Fleet as JaxFleet
 from repro.models.model import build_model as jax_build_model
 from repro.serving.engine import AgentRuntime as JaxRuntime, FleetEngine as JaxEngine
 from repro_torch.configs import get_config
 from repro_torch.core import allocator as alloc
+from repro_torch.core import capacity, failures, routing
 from repro_torch.core.agents import AgentSpec, Fleet
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
@@ -43,7 +49,9 @@ def jax_params():
     return out
 
 
-def _engines(policy, jax_params, agents=AGENTS):
+def _engines(policy, jax_params, agents=AGENTS, features=None):
+    """The JAX engine and the port's over ``agents``; ``features`` maps each
+    package's layer modules to the ``FleetEngine`` keyword arguments."""
     jax_rts, rts = {}, {}
     for name, arch, *_ in agents:
         jax_api, params = jax_params[arch]
@@ -51,20 +59,25 @@ def _engines(policy, jax_params, agents=AGENTS):
         cfg = get_config(arch, reduced=True)
         rts[name] = AgentRuntime(
             name, build_model(cfg),
-            params_from_numpy(jax.tree_util.tree_map(np.asarray, params), cfg),
+            params_from_numpy(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu"),
             max_len=MAX_LEN, batch_slots=SLOTS)
     jax_fleet = JaxFleet.from_specs([JaxAgentSpec(a[0], *a[2:]) for a in agents])
     fleet = Fleet.from_specs([AgentSpec(a[0], *a[2:]) for a in agents])
-    return (JaxEngine(jax_fleet, jax_rts, policy=policy, budget_tokens=BUDGET),
-            FleetEngine(fleet, rts, policy=policy, budget_tokens=BUDGET, device="cpu"))
+    jax_kw, kw = ({}, {}) if features is None else (
+        features(jax_routing, jax_capacity, jax_failures),
+        features(routing, capacity, failures))
+    return (JaxEngine(jax_fleet, jax_rts, policy=policy, budget_tokens=BUDGET, **jax_kw),
+            FleetEngine(fleet, rts, policy=policy, budget_tokens=BUDGET, device="cpu", **kw))
 
 
-def _drive(engines, ticks=8, seed=0, agents=AGENTS):
+def _drive(engines, ticks=8, seed=0, agents=AGENTS, sources=None, rate=1.5):
     rng = np.random.default_rng(seed)
     reqs = [[] for _ in engines]
     for t in range(ticks):
         for name, *_ in agents:
-            for _ in range(rng.poisson(1.5)):
+            if sources is not None and name not in sources:
+                continue
+            for _ in range(rng.poisson(rate)):
                 prompt = rng.integers(0, 512, rng.integers(3, 11))
                 new = int(rng.integers(2, 6))
                 for out, eng in zip(reqs, engines):
@@ -148,12 +161,90 @@ def test_short_prompt_to_mamba_raises_in_both_engines(jax_params):
             eng.step()
 
 
-@pytest.mark.parametrize("arg", ["workflow", "capacity", "failures"])
-def test_unported_engine_features_raise(arg, jax_params):
-    _, eng = _engines("adaptive", jax_params)
-    rts = {rt.name: rt for rt in eng.runtimes}
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        FleetEngine(eng.fleet, rts, device="cpu", **{arg: object()})
+# The serverless layers, built from either package's modules: a star that
+# fans each finished coordinator request out to the specialist, a reactive
+# pool of up to 2 instances with a 2-tick cold start, and failures with a
+# revocation chain, a scheduled outage of the specialist and deadlines.
+def _workflow(r, c, f):
+    return {"workflow": r.coordinator_star(2, fan_out=2.0)}
+
+
+def _capacity(r, c, f):
+    return {"capacity": c.capacity_config("reactive", cold_start_s=2.0,
+                                          target_rate_per_instance=1.0,
+                                          backlog_per_instance=3.0, min_instances=1.0),
+            "num_gpus": 2.0}
+
+
+def _failures(r, c, f):
+    return {"failures": f.failure_spec("mix", revoke_p_enter=0.3, revoke_p_exit=0.5,
+                                       revoke_frac=0.5, outage_start=2, outage_len=2,
+                                       outage_agent=1, deadline_s=2.0, retry_budget=1,
+                                       seed=1)}
+
+
+def _all(r, c, f):
+    return _workflow(r, c, f) | _capacity(r, c, f) | _failures(r, c, f)
+
+
+FEATURES = {"workflow": _workflow, "capacity": _capacity, "failures": _failures,
+            "all": _all}
+
+
+@pytest.mark.parametrize("feature", list(FEATURES))
+def test_serverless_engine_matches_jax_engine(feature, jax_params):
+    """Each layer on its own and all three together: the same streams,
+    history (routed, warm, pending, revoked_frac, down included) and
+    metrics (failure counters and the workflow block included)."""
+    jax_eng, eng = _engines("adaptive", jax_params, features=FEATURES[feature])
+    routed = feature in ("workflow", "all")
+    jax_reqs, reqs = _drive((jax_eng, eng),
+                            sources={"nlp"} if routed else None, rate=2.0)
+    _assert_engines_agree(jax_eng, eng, jax_reqs, reqs)
+    m, hist = eng.metrics(), eng.history
+    assert m["completed"] > 0
+    if routed:
+        assert m["routed_requests"] > 0 and m["sink_completed"] > 0
+        assert any(r.parent_id >= 0 for r in eng.completed)
+    if feature in ("capacity", "all"):
+        assert max(h["warm"] for h in hist) > 1.0 and max(h["pending"] for h in hist) > 0
+    if feature in ("failures", "all"):
+        assert any(h["revoked_frac"] > 0 for h in hist)
+        assert [h["down"] for h in hist[2:4]] == [1, 1]
+        assert m["slo_violations"] > 0
+    for h in hist:
+        assert sum(h["allocation"]) <= h["warm"] * (1.0 - h["revoked_frac"]) + 1e-6
+
+
+def test_routed_prompt_is_wrapped_into_the_child_vocabulary(jax_params):
+    """A child's prompt is its parent's generated ids; where the parent's
+    vocabulary is larger than the child's embedding table (the dense fleet's
+    qwen2-vl-2b coordinator over granite-8b specialists), the ids are taken
+    modulo the child's table, where the reference would embed NaN rows
+    (ROADMAP C)."""
+    import dataclasses
+
+    _, eng = _engines("adaptive", jax_params, features=_workflow)
+    vision = eng.runtimes[1]
+    api = build_model(dataclasses.replace(vision.api.cfg, vocab_size=100))
+    vision.api, vision.params = api, api.init(0, device="cpu")
+    rows = api.cfg.padded_vocab
+    assert vision.params["embed"]["embedding"].shape[0] == rows < 512
+    eng.submit("nlp", np.arange(5), 3)
+    eng.step()
+    parent = eng.completed[0]
+    assert max(parent.tokens_out) >= rows  # out of the child's table
+    child = vision.queue[0]
+    assert child.parent_id == parent.id
+    np.testing.assert_array_equal(child.prompt, np.asarray(parent.tokens_out) % rows)
+    eng.step()
+    assert any(r.agent == "vision" for r in eng.completed)
+
+
+def test_exogenous_request_at_a_non_source_raises(jax_params):
+    for eng in _engines("adaptive", jax_params, features=_workflow):
+        with pytest.raises(ValueError, match="not a source"):
+            eng.submit("vision", np.arange(4), 2)
 
 
 def test_build_engine_contract():
