@@ -39,7 +39,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    under sync debug mode "error", checks the Table II anchors and each
    trace against the CPU's, then all three layers on (a coordinator star,
    a reactive pool, the ``chaos`` scenario) and the conservation of queue
-   mass with capacity and failures on; ``serverless_engine`` serves the
+   mass with capacity and failures on; ``sweep`` runs the four sweep grids
+   on the card as streams (the Table II grid and its chaos axis, five
+   fleets of 4–256 agents, five workflows, four capacity policies), each
+   loop under the same sync check: the anchors, every cell against the
+   CPU's stream and the card's trace oracle (and one or two lead rows of
+   each grid against the oracle at the grid's own horizon, each oracle
+   run timed), block sizes 1, 8 and 64
+   identical on a synthesized grid, the card's synthesized arrivals the
+   CPU's bits, and the N = 1024 frontier synthesized on the card at the
+   longest horizon that fits ``SWEEP_FRONTIER_S`` of loop (the reference's
+   is 10^4 steps; the cut is printed); ``serverless_engine`` serves the
    full-width dense fleet with routing, a reactive warm pool and failures
    on (launch counters zeroed and read as in phase 5), and checks that the
    same engine at reduced widths on the CPU schedules exactly as the card.
@@ -49,7 +59,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one device kernel, and that a bf16 SSD call is one device kernel that
    allocates only its outputs, with the SSD device time of a full-width
    mamba2-370m prefill of 512 tokens; last, the device kernels per step and
-   the busy share of a Table II ``simulate`` under ``adaptive``.
+   the busy share of a Table II ``simulate`` under ``adaptive`` and of the
+   Table II grid's stream (``sweep_profile``).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -832,6 +843,297 @@ def phase_table2() -> dict:
     return walls
 
 
+# ---------------------------------------------------------------------------
+# Phase 6b: the streaming sweep grids
+# ---------------------------------------------------------------------------
+
+SWEEP_FLEET_SIZES = (4, 8, 16, 64, 256)   # benchmarks/fleet_scaling.py
+SWEEP_FLEET_STEPS = 50
+# Every cell of a lead-axis grid is held to the card's trace oracle at this
+# horizon (the oracle runs one simulate per cell), and the lead rows of
+# SWEEP_LEAD_ROWS at the grid's own horizon; the grids themselves and the
+# CPU comparisons run at full length.
+SWEEP_ORACLE_STEPS = 10
+SWEEP_LEAD_ROWS = {"chaos": ("chaos",), "fleets": ("fleet4_n256",),
+                   "workflows": ("synthetic_s0",), "capacity": ("reactive_cold", "scale_to_zero")}
+# The frontier: the reference benchmark's is 10^4 steps at N = 1024; here the
+# horizon is cut to what fits SWEEP_FRONTIER_S of loop time on this card, at
+# the Table II grid's measured rate (the same 72 cells a step).
+SWEEP_FRONTIER_N = 1024
+SWEEP_FRONTIER_STEPS = 10_000
+SWEEP_FRONTIER_S = 20.0
+SWEEP_FRONTIER_BLOCK = 64
+SWEEP_BLOCKS = (1, 8, 64)
+
+
+def _sweep_module():
+    import importlib
+
+    return importlib.import_module("repro_torch.core.sweep")
+
+
+class _StreamClock:
+    """Runs the sweep module's stream with its step loop under sync debug
+    mode "error" (a host sync inside raises) and keeps each run's wall time
+    up to the device's last kernel.  The grid's inputs reach the card
+    before the stream starts."""
+
+    def __init__(self):
+        self.sw = _sweep_module()
+        self.walls = []
+
+    def __enter__(self):
+        inner = self.orig = self.sw.simulate_stream_core
+
+        def clocked(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            self.walls.append(time.perf_counter() - t)
+            return out
+
+        self.sw.simulate_stream_core = clocked
+        return self
+
+    def __exit__(self, *exc):
+        self.sw.simulate_stream_core = self.orig
+
+
+def _grid_where(res, field, idx) -> str:
+    """A readable name of one entry of a sweep's grid."""
+    from repro_torch.core.simulator import METRIC_NAMES
+
+    lead = res._leading_axis()
+    parts = [] if lead is None else [lead[1][idx[0]]]
+    idx = idx if lead is None else idx[1:]
+    parts += [res.policy_names[idx[0]], res.scenario_names[idx[1]]]
+    parts.append(METRIC_NAMES[idx[2]] if field == "metrics" else f"{field}[{idx[2]}]")
+    return "/".join(parts)
+
+
+def _grid_gap(got, want) -> tuple[float, str]:
+    """Largest distance of one sweep's grids from another's, in units of
+    the phase-6 tolerance: rtol 1e-5 with an atol of 1e-5 of the largest
+    magnitude of each metric column (and of each per-agent grid); and
+    where it is."""
+    worst, where = 0.0, ""
+    for field in ("metrics", "per_agent_latency", "per_agent_throughput", "per_agent_queue"):
+        g = np.asarray(getattr(got, field), np.float64)
+        w = np.asarray(getattr(want, field), np.float64)
+        check(g.shape == w.shape, f"sweep {field}: shape {g.shape} vs {w.shape}")
+        check(np.isfinite(g).all(), f"sweep {field}: non-finite values")
+        axes = tuple(range(w.ndim - 1)) if field == "metrics" else None
+        atol = 1e-5 * np.maximum(np.abs(w).max(axis=axes), 1.0)
+        gap = np.abs(g - w) / (atol + 1e-5 * np.abs(w))
+        if gap.max() > worst:
+            worst = float(gap.max())
+            idx = np.unravel_index(gap.argmax(), gap.shape)
+            where = (f"{_grid_where(want, field, idx)}: {g[idx]!r} vs {w[idx]!r}")
+    return worst, where
+
+
+def _lead_rows(res, names):
+    """The rows ``names`` of a sweep's leading axis, as a result of their own."""
+    axis, lead = res._leading_axis()
+    rows = [lead.index(n) for n in names]
+    pick = lambda a: None if a is None else a[rows]
+    return dataclasses.replace(
+        res, metrics=pick(res.metrics), per_agent_latency=pick(res.per_agent_latency),
+        per_agent_throughput=pick(res.per_agent_throughput),
+        per_agent_queue=pick(res.per_agent_queue), **{f"{axis}_names": tuple(names)})
+
+
+def _timed(fn):
+    """``fn()`` and its wall time up to the device's last kernel."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_sweep() -> dict:
+    """The four grids on the card through the port's entry points, each
+    stream's step loop under sync debug mode "error": the Table II grid
+    (``sweep`` over ``scenario_library(PAPER_ARRIVAL_RATES, 100)``, the whole
+    registry, 72 cells), the same with the chaos axis
+    (``failure_scenario_library()``), ``sweep_fleets`` over
+    ``synthetic_fleet(n, seed=n)`` for n in SWEEP_FLEET_SIZES at 50 steps,
+    and ``sweep_workflows`` and ``sweep_capacity`` on the paper fleet.
+    Checks the Table II anchors in the constant column, every cell against
+    the CPU's stream and against the card's trace oracle (the lead-axis
+    grids' cells at SWEEP_ORACLE_STEPS, and their SWEEP_LEAD_ROWS at the
+    grid's own horizon), timing each oracle run, that every block
+    size of SWEEP_BLOCKS gives the same metrics on a synthesized grid with
+    capacity and failures on, that the card's synthesized arrivals are the
+    CPU's bits, and runs the N = 1024 frontier in the loop-synthesis mode at
+    the longest horizon that fits SWEEP_FRONTIER_S.  Returns the Table II
+    stream's wall time for ``profile_sweep``."""
+    from repro_torch.core import agents, allocator as alloc, capacity, failures, workload
+    from repro_torch.core.simulator import SimConfig
+
+    sw = _sweep_module()
+    t_phase = time.perf_counter()
+    fleet = agents.paper_fleet()
+    rates = agents.PAPER_ARRIVAL_RATES
+    lib = sw.scenario_library(rates, 100)
+    lib_short = sw.scenario_library(rates, SWEEP_ORACLE_STEPS)
+    chaos_lib = failures.failure_scenario_library()
+    elastic = SimConfig(num_gpus=8.0)
+    fleets = [agents.synthetic_fleet(n, seed=n) for n in SWEEP_FLEET_SIZES]
+    p = len(alloc.policy_names())
+    n_big = SWEEP_FLEET_SIZES[-1]
+    lead_oracles = {  # each grid's SWEEP_LEAD_ROWS alone, at the grid's horizon
+        "chaos": lambda **k: sw.sweep(fleet, lib, failures=chaos_lib[-1:], **k),
+        "fleets": lambda **k: sw.sweep_fleets(
+            fleets[-1:], rate_vectors=[workload.synthetic_rates(n_big, seed=len(fleets) - 1)],
+            fleet_names=SWEEP_LEAD_ROWS["fleets"], num_steps=SWEEP_FLEET_STEPS, **k),
+        "workflows": lambda **k: sw.sweep_workflows(
+            fleet, workflows=sw.workflow_scenario_library(fleet.num_agents)[-1:], **k),
+        "capacity": lambda **k: sw.sweep_capacity(
+            fleet, capacities=sw.capacity_scenario_library()[2:], config=elastic, **k),
+    }
+    grids = {
+        "table2": (lambda s, **k: sw.sweep(fleet, lib if s is None else s, **k), 100, 8),
+        "chaos": (lambda s, **k: sw.sweep(fleet, lib if s is None else s, failures=chaos_lib,
+                                          **k), 100, 8 * len(chaos_lib)),
+        "fleets": (lambda s, **k: sw.sweep_fleets(
+            fleets, num_steps=SWEEP_FLEET_STEPS if s is None else SWEEP_ORACLE_STEPS, **k),
+            SWEEP_FLEET_STEPS, 8 * len(fleets)),
+        "workflows": (lambda s, **k: sw.sweep_workflows(
+            fleet, num_steps=100 if s is None else SWEEP_ORACLE_STEPS, **k), 100, 8 * 5),
+        "capacity": (lambda s, **k: sw.sweep_capacity(
+            fleet, config=elastic, num_steps=100 if s is None else SWEEP_ORACLE_STEPS, **k),
+            100, 8 * 4),
+    }
+    walls = {}
+    with _StreamClock() as clock:
+        sw.sweep(fleet, lib_short, device=DEVICE)  # first run: lazy loads, not timed
+        for name, (run, steps, cols) in grids.items():
+            card = run(None, device=DEVICE)
+            wall = clock.walls[-1]
+            cpu = run(None, device="cpu")
+            short = None if name == "table2" else lib_short
+            card_short = card if short is None else run(short, device=DEVICE)
+            oracle, oracle_s = _timed(lambda: run(short, device=DEVICE, stream=False))
+            (gap_cpu, at_cpu), (gap_oracle, at_oracle) = (_grid_gap(card, cpu),
+                                                          _grid_gap(card_short, oracle))
+            cells = cols * p
+            walls[name] = wall
+            line = {"phase": "sweep", "grid": name, "shape": list(card.metrics.shape),
+                    "cells": cells, "steps": steps, "loop_s": wall,
+                    "host_ms_per_step": wall / steps * 1e3,
+                    "us_per_step_per_cell": wall / steps / cells * 1e6,
+                    "gap_vs_cpu": gap_cpu, "worst_vs_cpu": at_cpu, "gap_vs_oracle": gap_oracle,
+                    "worst_vs_oracle": at_oracle,
+                    "oracle_steps": steps if short is None else SWEEP_ORACLE_STEPS,
+                    "oracle_s": oracle_s}
+            if name in lead_oracles:
+                rows = SWEEP_LEAD_ROWS[name]
+                full, lead_s = _timed(lambda: lead_oracles[name](device=DEVICE, stream=False))
+                check(full._leading_axis()[1] == rows, f"sweep {name}: lead rows {rows}")
+                gap_lead, at_lead = _grid_gap(_lead_rows(card, rows), full)
+                line.update({"lead_rows": list(rows), "lead_oracle_steps": steps,
+                             "lead_oracle_s": lead_s, "gap_lead_vs_oracle": gap_lead,
+                             "worst_lead_vs_oracle": at_lead})
+                check(gap_lead <= 1.0, f"sweep {name}: the stream's rows {rows} are "
+                      f"{gap_lead} tolerances from the trace oracle at {steps} steps")
+            emit(line)
+            check(gap_cpu <= 1.0, f"sweep {name}: the card is {gap_cpu} tolerances from the CPU")
+            check(gap_oracle <= 1.0,
+                  f"sweep {name}: the stream is {gap_oracle} tolerances from the trace oracle")
+            if name == "table2":
+                s = {pol: card.summary(pol, "constant") for pol in card.policy_names}
+                emit({"phase": "sweep_table2", **{pol: [r.avg_latency, r.total_throughput,
+                                                        r.cost] for pol, r in s.items()}})
+                check(round(s["static_equal"].avg_latency, 1) == 110.3,
+                      "sweep table2: static_equal latency")
+                check(round(s["adaptive"].avg_latency, 1) == 111.9, "sweep table2: adaptive latency")
+                check(round(s["adaptive"].total_throughput, 2) == 58.12,
+                      "sweep table2: adaptive throughput")
+                check(abs(round(s["round_robin"].avg_latency, 1) - 756.1) <= 1.0,
+                      "sweep table2: round_robin latency")
+                check(all(round(r.cost, 3) == 0.020 for r in s.values()), "sweep table2: cost")
+
+        # Every block size, on a synthesized grid with capacity and failures on.
+        specs = workload.scenario_specs(workload.synthetic_rates(4, seed=0), 100, 0)
+        reactive = capacity.capacity_config("reactive", cold_start_s=3.0, min_instances=1.0)
+        by_block = {b: sw.sweep(fleet, specs, config=elastic, capacity=reactive,
+                                failures=chaos_lib[-1], block_size=b, device=DEVICE)
+                    for b in SWEEP_BLOCKS}
+        same = all(np.array_equal(by_block[b].metrics, by_block[1].metrics)
+                   and np.array_equal(by_block[b].per_agent_queue, by_block[1].per_agent_queue)
+                   for b in SWEEP_BLOCKS)
+        synth_cpu = sw.sweep(fleet, specs, config=elastic, capacity=reactive,
+                             failures=chaos_lib[-1], block_size=8, device="cpu")
+        gap_synth, at_synth = _grid_gap(by_block[8], synth_cpu)
+        stacked = workload.stack_specs(specs)
+        rows_card = workload.Synth(stacked, DEVICE).block(
+            workload.Synth(stacked, DEVICE).init(), 0, 100)[0].cpu()
+        rows_cpu = workload.Synth(stacked, "cpu").block(
+            workload.Synth(stacked, "cpu").init(), 0, 100)[0]
+        bits = torch.equal(rows_card.view(torch.int32), rows_cpu.view(torch.int32))
+        emit({"phase": "sweep_blocks", "blocks": list(SWEEP_BLOCKS), "identical": same,
+              "gap_vs_cpu": gap_synth, "worst_vs_cpu": at_synth, "synth_bits_equal_cpu": bits,
+              "loop_s": {b: clock.walls[-len(SWEEP_BLOCKS) - 1 + i]
+                         for i, b in enumerate(SWEEP_BLOCKS)}})
+        check(same, "sweep: block sizes gave different metrics")
+        check(gap_synth <= 1.0, f"sweep synthesized: {gap_synth} tolerances from the CPU")
+        check(bits, "sweep: synthesized arrivals on the card are not the CPU's bits")
+
+        # The frontier: the longest horizon that fits at the Table II grid's rate.
+        big = [agents.synthetic_fleet(SWEEP_FRONTIER_N, seed=SWEEP_FRONTIER_N)]
+        per_step = walls["table2"] / 100
+        steps = min(SWEEP_FRONTIER_STEPS, max(SWEEP_FRONTIER_BLOCK, int(
+            SWEEP_FRONTIER_S / per_step) // SWEEP_FRONTIER_BLOCK * SWEEP_FRONTIER_BLOCK))
+        res = sw.sweep_fleets(big, num_steps=steps, synthesize=True,
+                              block_size=SWEEP_FRONTIER_BLOCK, device=DEVICE)
+        wall = clock.walls[-1]
+        finite = bool(np.isfinite(res.metrics).all())
+        emit({"phase": "sweep_frontier", "agents": SWEEP_FRONTIER_N, "steps": steps,
+              "reference_steps": SWEEP_FRONTIER_STEPS, "cut": steps < SWEEP_FRONTIER_STEPS,
+              "block": SWEEP_FRONTIER_BLOCK, "shape": list(res.metrics.shape), "loop_s": wall,
+              "host_ms_per_step": wall / steps * 1e3,
+              "us_per_step_per_cell": wall / steps / (8 * p) * 1e6,
+              "adaptive_constant_latency": float(res.summary(
+                  "adaptive", "constant", fleet=res.fleet_names[0]).avg_latency),
+              "finite": finite})
+        check(finite, "sweep frontier: non-finite metrics")
+    emit({"phase": "sweep_total", "s": time.perf_counter() - t_phase})
+    return walls
+
+
+def profile_sweep(host_s: float) -> None:
+    """Device kernels per stream step and the device's busy share of the
+    Table II grid's stream (72 cells, 100 steps): ``host_s`` is its loop
+    time from ``phase_sweep``, taken before the profiler attached; the
+    device time comes from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import agents
+
+    sw = _sweep_module()
+    fleet = agents.paper_fleet()
+    lib = sw.scenario_library(agents.PAPER_ARRIVAL_RATES, 100)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sw.sweep(fleet, lib, device=DEVICE, return_arrays=True)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    steps, cells = 100, 72
+    emit({"phase": "sweep_profile", "grid": "table2", "cells": cells, "steps": steps,
+          "host_s": host_s, "host_ms_per_step": host_s / steps * 1e3,
+          "us_per_step_per_cell": host_s / steps / cells * 1e6,
+          "device_ms_per_step": device_s / steps * 1e3, "busy_share": device_s / host_s,
+          "device_kernels_per_step": len(kernels) / steps})
+    check(kernels, "the profiler saw no device kernel in a sweep")
+
+
 def profile_simulator(host_s: float, policy: str = "adaptive") -> None:
     """Device kernels per simulated step and the device's busy share of a
     Table II ``simulate`` on the card: ``host_s`` is its wall time taken by
@@ -1012,6 +1314,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     sim_walls = phase_table2()
+    sweep_walls = phase_sweep()
     serverless = phase_serverless_engine()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1021,6 +1324,7 @@ def main() -> None:
     check_decode_launches()
     check_ssd_launches()
     profile_simulator(sim_walls["adaptive"])
+    profile_sweep(sweep_walls["table2"])
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",

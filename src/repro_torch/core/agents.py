@@ -9,7 +9,11 @@ allocator is vectorized over agents.
 Every fleet carries ``active`` ∈ {0,1}^N: real agents are 1, padding is 0.
 ``pad_fleet`` grows a fleet to ``n_max`` slots with inert padding (T=1,
 R=0, P=1, active=0); every registered policy gives padded slots exactly
-g = 0 (see ``core/allocator.py``).
+g = 0 (see ``core/allocator.py``).  ``stack_fleets`` pads fleets of
+different sizes to one width and stacks them on a leading fleet axis
+(leaves (F, N)), the fleet axis of ``core/sweep.py::sweep_fleets``;
+``synthetic_fleet`` draws from ``np.random.default_rng`` as the reference
+does, so its arrays equal the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -65,7 +69,7 @@ class Fleet:
 
     @property
     def num_active(self) -> torch.Tensor:
-        return self.active.sum()
+        return self.active.sum(-1)
 
     @staticmethod
     def from_specs(specs: Sequence[AgentSpec]) -> "Fleet":
@@ -110,6 +114,51 @@ def paper_fleet() -> Fleet:
     ])
 
 
+def scale_fleet(fleet: Fleet, n: int) -> Fleet:
+    """Tile ``fleet`` to ``n`` agents, agent k taking agent ``k % N``'s
+    profile, with the tiled ``min_gpu`` renormalized to the original Σ R_i
+    (float32 numpy arithmetic, the reference's)."""
+    base = fleet.num_agents
+    if n < 1:
+        raise ValueError(f"fleet size must be >= 1, got {n}")
+    if (fleet.active.cpu().numpy() != 1.0).any():
+        raise ValueError(
+            "scale_fleet needs an unpadded fleet; tiling masked slots would "
+            "resurrect padding as real agents"
+        )
+    idx = np.arange(n) % base
+    take = lambda a: a.cpu().numpy().astype(np.float32)[idx]
+    mins = take(fleet.min_gpu)
+    target = float(fleet.min_gpu.cpu().numpy().astype(np.float32).sum())
+    if mins.sum() > 0:
+        mins = mins * (target / mins.sum())
+    return Fleet(
+        names=tuple(f"{fleet.names[i]}_{k}" for k, i in enumerate(idx)),
+        model_size_mb=_f32(take(fleet.model_size_mb)),
+        base_throughput=_f32(take(fleet.base_throughput)),
+        min_gpu=_f32(mins),
+        priority=_f32(take(fleet.priority)),
+    )
+
+
+def synthetic_fleet(n: int, seed: int = 0, total_min_gpu: float = 0.8) -> Fleet:
+    """A reproducible random heterogeneous fleet of ``n`` agents in the
+    paper's Table I ranges, with Σ R_i == ``total_min_gpu``; the draws are
+    the reference's (``np.random.default_rng(seed)``)."""
+    if n < 1:
+        raise ValueError(f"fleet size must be >= 1, got {n}")
+    rng = np.random.default_rng(seed)
+    mins = rng.uniform(0.5, 1.5, n)
+    mins = total_min_gpu * mins / mins.sum()
+    return Fleet(
+        names=tuple(f"agent_{i:03d}" for i in range(n)),
+        model_size_mb=_f32(rng.uniform(250.0, 4000.0, n)),
+        base_throughput=_f32(rng.uniform(20.0, 120.0, n)),
+        min_gpu=_f32(mins),
+        priority=_f32(rng.integers(1, 4, n)),
+    )
+
+
 def pad_fleet(fleet: Fleet, n_max: int) -> Fleet:
     """Pad ``fleet`` to ``n_max`` slots with inert, masked-out agents.
 
@@ -134,6 +183,28 @@ def pad_fleet(fleet: Fleet, n_max: int) -> Fleet:
         min_gpu=ext(fleet.min_gpu, 0.0),
         priority=ext(fleet.priority, 1.0),
         active=ext(fleet.active, 0.0),
+    )
+
+
+def stack_fleets(fleets: Sequence[Fleet], n_max: int | None = None) -> Fleet:
+    """Pad ``fleets`` to a common width and stack each leaf on a new leading
+    fleet axis: every tensor becomes (F, N_max), and the names become
+    generic slot labels."""
+    if not fleets:
+        raise ValueError("stack_fleets needs at least one fleet")
+    width = max(f.num_agents for f in fleets)
+    n_max = width if n_max is None else n_max
+    if n_max < width:
+        raise ValueError(f"n_max={n_max} < widest fleet ({width} agents)")
+    padded = [pad_fleet(f, n_max) for f in fleets]
+    stack = lambda field: torch.stack([getattr(f, field).to(torch.float32) for f in padded])
+    return Fleet(
+        names=tuple(f"slot_{i:03d}" for i in range(n_max)),
+        model_size_mb=stack("model_size_mb"),
+        base_throughput=stack("base_throughput"),
+        min_gpu=stack("min_gpu"),
+        priority=stack("priority"),
+        active=stack("active"),
     )
 
 

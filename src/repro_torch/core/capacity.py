@@ -21,12 +21,20 @@ The port keeps the two selectors that decide control flow on the host as
 Python values (``policy_id`` and ``cold_start_s``, which fixes the
 delay-line slot), and the knobs the policies compute with as float32
 tensors that move to the simulator's device (``CapacityConfig.to``).
-Stacked configs for the sweeps (``stack_capacities``) come with ROADMAP A4.
+
+``stack_capacities`` stacks configs on a leading capacity axis for
+``core/sweep.py::sweep_capacity``: there every leaf, the policy id and the
+cold start too, is a tensor, so each row evaluates all three capacity
+policies and selects its own, and the cold-start request enters the delay
+line through a one-hot over its fixed horizon.  The pool state may carry
+leading axes (a streaming sweep's policy and cell axes); the delay line is
+its last axis.  One config over one pool runs the single-row program, bit
+for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -66,16 +74,22 @@ class CapacityConfig:
     """One capacity policy and its knobs.
 
     ``policy_id`` (the registry index) and ``cold_start_s`` (rounded to
-    float32) are host values; the other knobs are 0-d float32 tensors.
+    float32) are host values; the other knobs are 0-d float32 tensors.  A
+    stacked config (``stack_capacities``) holds every field, these two
+    too, as a (C,) tensor.
     """
 
-    policy_id: int
-    cold_start_s: float                    # seconds pending before warm
+    policy_id: int | torch.Tensor
+    cold_start_s: float | torch.Tensor     # seconds pending before warm
     keep_alive_s: torch.Tensor             # () idle window (scale_to_zero)
     target_rate_per_instance: torch.Tensor  # () rps one instance absorbs
     backlog_per_instance: torch.Tensor     # () queued reqs per extra instance
     min_instances: torch.Tensor            # () reactive floor
     name: str = "capacity"
+
+    @property
+    def batched(self) -> bool:
+        return isinstance(self.policy_id, torch.Tensor)
 
     @property
     def policy(self) -> str:
@@ -89,13 +103,18 @@ class CapacityConfig:
         return min(max(round(self.cold_start_s), 0), COLD_START_HORIZON - 1)
 
     def to(self, device) -> "CapacityConfig":
-        move = lambda x: x.to(device)
-        return dataclasses.replace(
-            self, keep_alive_s=move(self.keep_alive_s),
-            target_rate_per_instance=move(self.target_rate_per_instance),
-            backlog_per_instance=move(self.backlog_per_instance),
-            min_instances=move(self.min_instances),
-        )
+        return self.map(lambda x: x.to(device))
+
+    def map(self, fn) -> "CapacityConfig":
+        """``fn`` applied to every tensor leaf (the stacked selectors too)."""
+        tensors = {f: getattr(self, f) for f in _TENSOR_FIELDS}
+        if self.batched:
+            tensors.update(policy_id=self.policy_id, cold_start_s=self.cold_start_s)
+        return dataclasses.replace(self, **{f: fn(v) for f, v in tensors.items()})
+
+
+_TENSOR_FIELDS = ("keep_alive_s", "target_rate_per_instance", "backlog_per_instance",
+                  "min_instances")
 
 
 def capacity_config(
@@ -123,46 +142,66 @@ def capacity_config(
 
 
 def check_capacity(cap: CapacityConfig, g_total: float, num_gpus: float) -> None:
-    """Eager sanity constraints, checked before a run."""
-    cold = cap.cold_start_s
-    if cold < 0 or cold > COLD_START_HORIZON - 1:
+    """Eager sanity constraints, checked before a run (one config or a
+    stacked batch)."""
+    value = lambda x: np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float64)
+    cold = value(cap.cold_start_s)
+    if (cold < 0).any() or (cold > COLD_START_HORIZON - 1).any():
         raise ValueError(
             f"cold_start_s must be in [0, {COLD_START_HORIZON - 1}] "
             f"(COLD_START_HORIZON), got {cold}"
         )
-    value = lambda x: float(x.cpu())
-    if value(cap.keep_alive_s) < 0:
+    if (value(cap.keep_alive_s) < 0).any():
         raise ValueError(f"keep_alive_s must be >= 0: {value(cap.keep_alive_s)}")
-    if value(cap.target_rate_per_instance) <= 0:
+    if (value(cap.target_rate_per_instance) <= 0).any():
         raise ValueError("target_rate_per_instance must be positive")
-    if value(cap.backlog_per_instance) <= 0:
+    if (value(cap.backlog_per_instance) <= 0).any():
         raise ValueError("backlog_per_instance must be positive")
     mins = value(cap.min_instances)
-    if mins < 0 or mins > num_gpus:
+    if (mins < 0).any() or (mins > num_gpus).any():
         raise ValueError(f"min_instances must be in [0, num_gpus={num_gpus}]: {mins}")
     check_budget_ceiling(g_total, num_gpus)
+
+
+def stack_capacities(caps: Sequence[CapacityConfig]) -> CapacityConfig:
+    """Stack configs on a new leading capacity axis: every field becomes a
+    (C,) tensor (the policy id int64, the cold start float32)."""
+    caps = list(caps)
+    if not caps:
+        raise ValueError("stack_capacities needs at least one config")
+    if any(c.batched for c in caps):
+        raise ValueError("stack_capacities takes single configs")
+    stack = lambda field: torch.stack([getattr(c, field).cpu() for c in caps])
+    return CapacityConfig(
+        policy_id=torch.tensor([c.policy_id for c in caps], dtype=torch.int64),
+        cold_start_s=torch.tensor([c.cold_start_s for c in caps], dtype=torch.float32),
+        **{f: stack(f) for f in _TENSOR_FIELDS},
+        name="stacked",
+    )
 
 
 @dataclasses.dataclass
 class CapacityState:
     """The warm pool's state between steps.
 
-    ``pipeline[k]`` is the number of requested instances that become warm in
-    ``k`` steps; ``idle_s`` counts consecutive seconds with zero fleet-wide
-    demand (the keep-alive clock).
+    ``pipeline[..., k]`` is the number of requested instances that become
+    warm in ``k`` steps; ``idle_s`` counts consecutive seconds with zero
+    fleet-wide demand (the keep-alive clock).  Leaves may carry leading
+    batch axes.
     """
 
-    warm: torch.Tensor      # () serving instances
-    pipeline: torch.Tensor  # (COLD_START_HORIZON,) cold cohorts
-    idle_s: torch.Tensor    # ()
+    warm: torch.Tensor      # (...,) serving instances
+    pipeline: torch.Tensor  # (..., COLD_START_HORIZON) cold cohorts
+    idle_s: torch.Tensor    # (...,)
 
 
-def init_capacity_state(g_total: float, device="cpu") -> CapacityState:
+def init_capacity_state(g_total: float, device="cpu", batch_shape: tuple = ()) -> CapacityState:
     """The pool at t=0: the provisioned baseline is already warm."""
     return CapacityState(
-        warm=_f32(g_total, device),
-        pipeline=torch.zeros((COLD_START_HORIZON,), dtype=torch.float32, device=device),
-        idle_s=torch.zeros((), dtype=torch.float32, device=device),
+        warm=torch.full(batch_shape, g_total, dtype=torch.float32, device=device),
+        pipeline=torch.zeros(batch_shape + (COLD_START_HORIZON,), dtype=torch.float32,
+                             device=device),
+        idle_s=torch.zeros(batch_shape, dtype=torch.float32, device=device),
     )
 
 
@@ -259,21 +298,39 @@ def capacity_step(
     delay line at ``round(cold_start_s)`` — a zero cold start serves the
     same step.  All on the device of ``state``, with no host sync.
     """
-    warm = state.warm + state.pipeline[0]
-    pipeline = torch.cat([state.pipeline[1:], torch.zeros_like(state.pipeline[:1])])
+    warm = state.warm + state.pipeline[..., 0]
+    pipeline = torch.cat([state.pipeline[..., 1:], torch.zeros_like(state.pipeline[..., :1])],
+                         dim=-1)
     busy = (lam_tot + queue_tot) > 0
     idle_s = torch.where(busy, torch.zeros_like(state.idle_s), state.idle_s + 1.0)
-    pending = pipeline.sum()
-    desired = _CAP_REGISTRY[cap.policy](
-        t, lam_tot, lam_ema_tot, queue_tot, warm, pending, idle_s, cap,
-        g_total, num_gpus,
-    )
+    pending = pipeline.sum(-1)
+    if cap.batched:
+        # Every row evaluates each capacity policy and keeps its own.
+        desired = torch.zeros_like(warm)
+        for k, fn in enumerate(_CAP_REGISTRY.values()):
+            d = fn(t, lam_tot, lam_ema_tot, queue_tot, warm, pending, idle_s, cap,
+                   g_total, num_gpus)
+            desired = torch.where(cap.policy_id == k, d, desired)
+    else:
+        desired = _CAP_REGISTRY[cap.policy](
+            t, lam_tot, lam_ema_tot, queue_tot, warm, pending, idle_s, cap,
+            g_total, num_gpus,
+        )
     warm = torch.minimum(warm, desired)
     request = torch.clamp(desired - (warm + pending), min=0.0)
-    delay = cap.delay
-    direct = request if delay == 0 else torch.zeros_like(request)
-    warm = warm + direct
     # Slot k is consumed at the start of step t+k+1, so a d-second cold
     # start lands in slot d-1 (d = 0 was served directly above).
-    pipeline[max(delay - 1, 0)] += request - direct
-    return CapacityState(warm=warm, pipeline=pipeline, idle_s=idle_s), warm, pipeline.sum()
+    if cap.batched:
+        delay = torch.clamp(torch.round(cap.cold_start_s), 0, COLD_START_HORIZON - 1)
+        direct = torch.where(delay == 0, request, torch.zeros_like(request))
+        slot = torch.clamp(delay - 1.0, min=0.0)
+        lanes = torch.arange(COLD_START_HORIZON, dtype=torch.float32, device=warm.device)
+        onehot = (lanes == slot[..., None]).to(torch.float32)
+        pipeline = pipeline + onehot * (request - direct)[..., None]
+        warm = warm + direct
+    else:
+        delay = cap.delay
+        direct = request if delay == 0 else torch.zeros_like(request)
+        warm = warm + direct
+        pipeline[..., max(delay - 1, 0)] += request - direct
+    return CapacityState(warm=warm, pipeline=pipeline, idle_s=idle_s), warm, pipeline.sum(-1)

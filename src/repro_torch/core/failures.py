@@ -16,12 +16,19 @@ exactly), which compose:
 
 The draws are counter-based and bit for bit JAX's: step ``t`` uses
 ``uniform(fold_in(fold_in(key, t), slot))`` through ``core/prng.py``.  They
-are pure in ``t``, so the simulator draws a whole run's uniforms on the host
-before its step loop and copies them to the card once.
+are pure in ``t``, so ``simulate`` draws a whole run's uniforms before its
+step loop and the streaming sweep each block's, both on the device
+(``failure_uniforms_t``, the numpy ``failure_uniforms``' bits).
+
+``stack_failures`` stacks scenarios on a leading chaos axis (the failure
+axis of ``core/sweep.py::sweep``).  The chain and deadline functions take
+leaves that broadcast against the state's leading axes: a scalar knob as
+(..., 1) over (..., N) agents (``advance_failures`` and ``deadline_step``
+add that axis themselves), so one spec over one (N,) row runs the
+single-row program bit for bit.
 
 ``REPRO_FAILURES=0`` disables failure injection at the entry points
-(``simulate``, ``FleetEngine``), as in the reference.  Stacked specs for
-the sweeps (``stack_failures``) come with ROADMAP A4.
+(``simulate``, ``FleetEngine``, the sweeps), as in the reference.
 """
 from __future__ import annotations
 
@@ -82,8 +89,11 @@ class FailureSpec:
         return self.revoke_frac.ndim > 0
 
     def to(self, device) -> "FailureSpec":
-        return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in _LEAVES})
+        return self.map(lambda x: x.to(device))
+
+    def map(self, fn) -> "FailureSpec":
+        """``fn`` applied to every tensor leaf."""
+        return dataclasses.replace(self, **{f: fn(getattr(self, f)) for f in _LEAVES})
 
 
 def failure_spec(
@@ -141,6 +151,26 @@ def check_failures(spec: FailureSpec) -> None:
         raise ValueError("failures.outage_len must be >= 0")
 
 
+def stack_failures(specs: Sequence[FailureSpec]) -> FailureSpec:
+    """Stack scenarios on a leading chaos axis: leaves (B,), ``deadline_s``
+    (B,) or (B, N), ``key_data`` (B, 2), ``name`` the tuple of names."""
+    specs = list(specs)
+    if not specs:
+        raise ValueError("stack_failures needs at least one spec")
+    names = [s.name for s in specs]
+    if len(set(names)) != len(names):
+        raise ValueError(f"failure scenario names must be unique, got {names}")
+    dshape = torch.broadcast_shapes(*(tuple(s.deadline_s.shape) for s in specs))
+    leaves = {}
+    for f in _LEAVES:
+        vals = [getattr(s, f).cpu() for s in specs]
+        if f == "deadline_s":
+            vals = [v.expand(dshape) for v in vals]
+        leaves[f] = torch.stack(vals)
+    return FailureSpec(name=tuple(names), key_data=np.stack([s.key_data for s in specs]),
+                       **leaves)
+
+
 def failures_env_enabled() -> bool:
     return os.environ.get(FAILURE_ENV, "1") not in ("0", "false", "off")
 
@@ -175,20 +205,24 @@ def failure_scenario_library(seed: int = 0) -> tuple[FailureSpec, ...]:
 # ---------------------------------------------------------------------------
 
 class FailureState(NamedTuple):
-    """Failure-chain state between steps."""
+    """Failure-chain state between steps.  The chains (``rev_on``,
+    ``down``, ``fail_prev``) are shared by a streaming sweep's policy rows;
+    the bookkeeping carries the rows' axes (``batch_shape``)."""
     rev_on: torch.Tensor      # ()    revocation chain on/off
     down: torch.Tensor        # (N,)  agent outage chains
     fail_prev: torch.Tensor   # ()    failure was active last step
-    recovering: torch.Tensor  # ()    draining post-outage backlog
-    q_mark: torch.Tensor      # ()    pre-outage backlog watermark
-    retry_q: torch.Tensor     # (RETRY_CLASSES-1, N) retried mass
+    recovering: torch.Tensor  # (...,)  draining post-outage backlog
+    q_mark: torch.Tensor      # (...,)  pre-outage backlog watermark
+    retry_q: torch.Tensor     # (..., RETRY_CLASSES-1, N) retried mass
 
 
-def init_failure_state(num_agents: int, device="cpu") -> FailureState:
+def init_failure_state(num_agents: int, device="cpu", batch_shape: tuple = (),
+                       chain_shape: tuple = ()) -> FailureState:
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
-    return FailureState(rev_on=z(), down=z(num_agents), fail_prev=z(),
-                        recovering=z(), q_mark=z(),
-                        retry_q=z(RETRY_CLASSES - 1, num_agents))
+    return FailureState(rev_on=z(*chain_shape), down=z(*chain_shape, num_agents),
+                        fail_prev=z(*chain_shape), recovering=z(*batch_shape),
+                        q_mark=z(*batch_shape),
+                        retry_q=z(*batch_shape, RETRY_CLASSES - 1, num_agents))
 
 
 def failure_uniforms(spec: FailureSpec, t, num_agents: int):
@@ -199,6 +233,17 @@ def failure_uniforms(spec: FailureSpec, t, num_agents: int):
     u_rev = prng.uniform(prng.fold_in(key_t, _SLOT_REVOKE))
     u_down = prng.uniform(prng.fold_in(key_t, _SLOT_DOWN), (num_agents,))
     return torch.from_numpy(np.array(u_rev)), torch.from_numpy(u_down)
+
+
+def failure_uniforms_t(key: torch.Tensor, t0: int, b: int, num_agents: int):
+    """``failure_uniforms`` for steps t0 .. t0+b-1 on the device of the int64
+    keys (..., 2) (``prng.key_t(spec.key_data)``): (u_rev (..., b),
+    u_down (..., b, N)), the numpy function's bits."""
+    ts = torch.arange(t0, t0 + b, dtype=torch.int64, device=key.device)
+    key_t = prng.fold_in_t(key[..., None, :], ts)  # (..., b, 2)
+    slot = lambda s: prng.fold_in_t(key_t, torch.full((), s, dtype=torch.int64,
+                                                      device=key.device))
+    return prng.uniform_t(slot(_SLOT_REVOKE)), prng.uniform_t(slot(_SLOT_DOWN), (num_agents,))
 
 
 def advance_failures(spec: FailureSpec, t: int, rev_on, down, u_rev, u_down):
@@ -212,15 +257,16 @@ def advance_failures(spec: FailureSpec, t: int, rev_on, down, u_rev, u_down):
     """
     rev_nxt = torch.where(rev_on > 0.5, u_rev >= spec.revoke_p_exit,
                           u_rev < spec.revoke_p_enter).to(torch.float32)
-    down_nxt = torch.where(down > 0.5, u_down >= spec.fail_p_exit,
-                           u_down < spec.fail_p_enter).to(torch.float32)
+    agent = lambda x: x[..., None]  # a per-scenario knob over the agents
+    down_nxt = torch.where(down > 0.5, u_down >= agent(spec.fail_p_exit),
+                           u_down < agent(spec.fail_p_enter)).to(torch.float32)
     phi = spec.revoke_frac * rev_nxt
     tf = float(t)
     sched = ((tf >= spec.outage_start)
              & (tf < spec.outage_start + spec.outage_len)).to(torch.float32)
     col = (torch.arange(down.shape[-1], dtype=torch.float32, device=down.device)
-           == spec.outage_agent).to(torch.float32)
-    down_eff = torch.clamp(down_nxt + sched * col, 0.0, 1.0)
+           == agent(spec.outage_agent)).to(torch.float32)
+    down_eff = torch.clamp(down_nxt + agent(sched) * col, 0.0, 1.0)
     return phi, 1.0 - down_eff, rev_nxt, down_nxt
 
 
@@ -250,7 +296,7 @@ def deadline_step(spec: FailureSpec, queue, lam, served, q_post, cap_eff,
     e = m_post * exp_frac[..., None, :]          # expired mass per class
     k = torch.arange(RETRY_CLASSES, dtype=torch.float32, device=queue.device)
     budget = torch.clamp(spec.retry_budget, 0.0, RETRY_CLASSES - 1.0)
-    retry_mask = (k < budget).to(torch.float32)[:, None]   # (C, 1)
+    retry_mask = (k < budget[..., None]).to(torch.float32)[..., None]   # (..., C, 1)
     ret = e * retry_mask                          # re-enters, one class up
     dro = e * (1.0 - retry_mask)                  # budget exhausted: drop
     promoted = torch.cat([torch.zeros_like(ret[..., :1, :]), ret[..., :-1, :]], dim=-2)

@@ -14,12 +14,15 @@
 Generators: ``independent`` (no routing), ``coordinator_star``,
 ``pipeline_chain``, ``hierarchical`` and ``synthetic_workflow(n, seed)``,
 which draws from ``np.random.default_rng(seed)`` exactly as the reference,
-so its arrays equal the reference's bit for bit.  Stacked workflows for the
-sweeps (``stack_workflows``) come with ROADMAP A4.
+so its arrays equal the reference's bit for bit.  ``stack_workflows`` pads
+topologies to one width and stacks them on a leading workflow axis ((K, N,
+N) route, (K, N) flags): the workflow axis of
+``core/sweep.py::sweep_workflows``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -231,4 +234,22 @@ def pad_workflow(wf: Workflow, n_max: int) -> Workflow:
     return Workflow(
         name=wf.name, route=route, source=vec(wf.source, 0.0),
         sink=vec(wf.sink, 0.0), fan_out=vec(wf.fan_out, 1.0),
+    )
+
+
+def stack_workflows(workflows: Sequence[Workflow], n_max: int | None = None) -> Workflow:
+    """Pad ``workflows`` to a common width and stack every leaf on a new
+    leading workflow axis: (K, N, N) route, (K, N) flags."""
+    if not workflows:
+        raise ValueError("stack_workflows needs at least one workflow")
+    width = max(w.num_agents for w in workflows)
+    n_max = width if n_max is None else n_max
+    if n_max < width:
+        raise ValueError(f"n_max={n_max} < widest workflow ({width} agents)")
+    padded = [pad_workflow(w, n_max) for w in workflows]
+    stack = lambda field: torch.stack([getattr(w, field) for w in padded])
+    return Workflow(
+        name="+".join(w.name for w in workflows),
+        route=stack("route"), source=stack("source"), sink=stack("sink"),
+        fan_out=stack("fan_out"),
     )

@@ -475,3 +475,98 @@ def test_the_card_keeps_subnormals(policy, card):
     for field, w in want.fields().items():
         torch.testing.assert_close(got.fields()[field].cpu(), w, rtol=1e-5, atol=1e-5,
                                    msg=field)
+
+
+# ---------------------------------------------------------------------------
+# The sweep grids on the card: each entry point against the CPU, and the
+# loop synthesis's bits.
+# ---------------------------------------------------------------------------
+
+def _sweep_gap(got, want):
+    """The largest distance in units of rtol 1e-5 with an atol of 1e-5 of
+    each metric column's (each per-agent grid's) largest magnitude."""
+    import numpy as np
+
+    worst = 0.0
+    for field in ("metrics", "per_agent_latency", "per_agent_throughput", "per_agent_queue"):
+        g, w = (np.asarray(getattr(r, field), np.float64) for r in (got, want))
+        assert g.shape == w.shape
+        axes = tuple(range(w.ndim - 1)) if field == "metrics" else None
+        atol = 1e-5 * np.maximum(np.abs(w).max(axis=axes), 1.0)
+        worst = max(worst, float((np.abs(g - w) / (atol + 1e-5 * np.abs(w))).max()))
+    return worst
+
+
+def _sweep_grids():
+    import importlib
+
+    from repro_torch.core import agents, failures, simulator
+
+    sw = importlib.import_module("repro_torch.core.sweep")
+    fleet = agents.paper_fleet()
+    lib = sw.scenario_library(agents.PAPER_ARRIVAL_RATES, 30)
+    fleets = [agents.synthetic_fleet(n, seed=n) for n in (4, 16, 256)]
+    return {
+        "sweep": lambda **k: sw.sweep(fleet, lib, **k),
+        "chaos": lambda **k: sw.sweep(fleet, lib[:3], failures=failures.failure_scenario_library(),
+                                      **k),
+        "fleets": lambda **k: sw.sweep_fleets(fleets, num_steps=20, **k),
+        "workflows": lambda **k: sw.sweep_workflows(fleet, num_steps=30, **k),
+        "capacity": lambda **k: sw.sweep_capacity(fleet, num_steps=30,
+                                                  config=simulator.SimConfig(num_gpus=8.0), **k),
+    }
+
+
+@pytest.mark.parametrize("grid", ["sweep", "chaos", "fleets", "workflows", "capacity"])
+def test_sweep_on_the_card_matches_the_cpu(grid, card):
+    """Each entry point's stream on the card equals the CPU's within rtol
+    1e-5 (atol 1e-5 of each column's magnitude), and returns device
+    tensors with ``return_arrays``."""
+    run = _sweep_grids()[grid]
+    assert _sweep_gap(run(device="cuda"), run(device="cpu")) <= 1.0
+    assert run(device="cuda", return_arrays=True)[0].device.type == "cuda"
+
+
+def test_loop_synthesis_on_the_card_is_the_cpus_bits(card):
+    """The whole scenario library synthesized on the card, per step and in
+    blocks, is bit for bit the CPU's; so are the failure uniforms."""
+    import numpy as np
+
+    from repro_torch.core import failures, prng, workload
+
+    specs = workload.stack_specs(workload.scenario_specs(workload.synthetic_rates(64, seed=3),
+                                                         200, seed=5))
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        synth = workload.Synth(specs, dev)
+        state = synth.init()
+        block, _ = synth.block(state, 0, 200)
+        step, _ = synth.step(state, 0)
+        rows[dev] = (block.cpu(), step.cpu())
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    spec = failures.failure_scenario_library(seed=4)[-1]
+    u_rev, u_down = failures.failure_uniforms_t(prng.key_t(spec.key_data, "cuda"), 0, 50, 64)
+    want_rev, want_down = failures.failure_uniforms(spec, np.arange(50), 64)
+    assert torch.equal(u_rev.cpu(), want_rev) and torch.equal(u_down.cpu(), want_down)
+
+
+def test_sweep_block_sizes_agree_on_the_card(card):
+    """Block sizes 1, 8 and 64 give the same metrics on the card, with
+    loop synthesis, capacity and failures on."""
+    import importlib
+
+    import numpy as np
+
+    from repro_torch.core import agents, capacity, failures, simulator, workload
+
+    sw = importlib.import_module("repro_torch.core.sweep")
+    specs = workload.scenario_specs(workload.synthetic_rates(4, seed=0), 70, 0)
+    kw = dict(config=simulator.SimConfig(num_gpus=8.0), device="cuda",
+              capacity=capacity.capacity_config("reactive", cold_start_s=3.0,
+                                                min_instances=1.0),
+              failures=failures.failure_scenario_library()[-1])
+    base = sw.sweep(agents.paper_fleet(), specs, block_size=1, **kw).metrics
+    for b in (8, 64):
+        assert np.array_equal(sw.sweep(agents.paper_fleet(), specs, block_size=b, **kw).metrics,
+                              base)
