@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. Device: a CUDA device of compute capability 9.0; prints its name and
    ``nvidia-smi``'s name and power limit.  TF32 is switched off so the
-   plain float32 versions compute in full float32.
+   plain float32 versions (and the MoE router) compute in full float32;
+   the MoE phases and the end check that it stayed off.
 2. Build: compiles the kernels from ``src/repro_torch/kernels`` (``nvcc``,
    sm_90a, one process per source) and prints the build time, ptxas'
    registers, shared memory and spills per kernel, and the number of
@@ -24,16 +25,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the bound; flash and SSD rows also give the route (bf16 on the tensor
    cores, float32 on the FMA pipes), the TFLOP/s reached and the share of
    the bound.  The SSD scan has no single PyTorch call to time beside it.
-4. Full-width models, kernels vs plain versions, one 512-token prefill and 8
-   decode steps each, compared step by step, at published widths with
-   seeded random weights: granite-8b in bfloat16, and mamba2-370m in
-   float32 (held) and in bfloat16 (printed beside the spread that a mere
-   change of the plain scan's chunk gives; see ``phase_model``).
+   mixtral-8x7b's shapes (32 q / 8 kv heads, window 4096): flash at 512,
+   6144 and 8192 tokens (at 8192 the plain route is banded, SDPA gets the
+   band as an explicit mask, and the bound counts the band's work only),
+   decode over a full rolling cache of 4096 entries.
+4. Full-width models, kernels vs plain versions, a prefill and decode steps
+   each, compared step by step, at published widths with seeded random
+   weights: granite-8b in bfloat16 and mamba2-370m in float32 (held) and in
+   bfloat16 (printed beside the spread that a mere change of the plain
+   scan's chunk gives; see ``phase_model``), 512-token prompts, 8 steps;
+   then the MoE family (``phase_moe_model``): mixtral-8x7b in float32 cut
+   to 4 layers, an 8192-token prompt (banded on the plain route) and 8
+   steps into the rolled cache, held at 1e-3 of max|logits|; granite-moe-
+   1b-a400m whole in float32 (24 layers, 32 experts, top-8), 512 tokens and
+   4 steps, held the same; mixtral-8x7b in bfloat16 at the fleet's 16
+   layers, not held: the logits gap and the share of (token, layer) pairs
+   routed to another set of experts, beside the same numbers for the plain
+   route's masked attention against its banded form.
 5. The slices, each driven for 8 ticks of Poisson traffic under the paper's
    allocator with every kernel's launch counter zeroed just before and read
-   just after: ``build_engine`` over the dense Table I fleet at full width,
-   then the reference's two-agent engine fleet (``tests/test_serving.py``:
-   minitron-4b and mamba2-370m) at full width.
+   just after (``engine_tick`` lines: per-agent prefill and decode seconds,
+   launches, device GiB allocated): ``build_engine`` over the dense Table I
+   fleet at full width, then the reference's two-agent engine fleet
+   (``tests/test_serving.py``: minitron-4b and mamba2-370m) at full width,
+   then the Table I fleet itself (``DEFAULT_FLEET``, mixtral-8x7b cut to 16
+   of its 32 layers, ``FULL_WIDTH_CUT``, printed), whose reduced twin on the
+   CPU must schedule exactly as the card.
 6. The serverless layers: ``table2`` runs every registered policy through
    the simulator on the card (Table II's fleet and workload), its step loop
    under sync debug mode "error", checks the Table II anchors and each
@@ -53,9 +70,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    full-width dense fleet with routing, a reactive warm pool and failures
    on (launch counters zeroed and read as in phase 5), and checks that the
    same engine at reduced widths on the CPU schedules exactly as the card.
-7. Profile: full-width granite-8b decode steps (4 rows, a 300-entry
-   cache) on the host clock and in ``torch.profiler``: the device's busy
-   share of a step; then checks that a decode call with an int length is
+7. Profile: full-width granite-8b and mixtral-8x7b (the fleet's 16 layers)
+   decode steps (4 rows, a 300-entry cache) on the host clock and in
+   ``torch.profiler``: the device's busy share of a step and its device
+   kernels per layer; then checks that a decode call with an int length is
    one device kernel, and that a bf16 SSD call is one device kernel that
    allocates only its outputs, with the SSD device time of a full-width
    mamba2-370m prefill of 512 tokens; last, the device kernels per step and
@@ -69,6 +87,7 @@ before printing either.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -139,6 +158,12 @@ SLICE_SSD = [(1, s, 32, 64, 128, 128, False) for s in (128, 512, 2048, 8192)]
 # minitron-4b's heads (24 q / 8 kv), the GQA ratio the two-agent fleet adds.
 SLICE_FLASH += [(1, 512, 512, 24, 8, 128, True, 0)]
 SLICE_DECODE += [(4, 24, 8, 128, 1024, 300, 0)]
+# mixtral-8x7b's heads (32 q / 8 kv) and window of 4096: a prompt inside the
+# window, one past it, and one that the plain route computes banded
+# (ref.uses_banded); decode over a full rolling cache of 4096 entries.
+MIXTRAL_WINDOW = 4096
+MIXTRAL_FLASH = [(1, s, s, 32, 8, 128, True, MIXTRAL_WINDOW) for s in (512, 6144, 8192)]
+MIXTRAL_DECODE = [(4, 32, 8, 128, MIXTRAL_WINDOW, MIXTRAL_WINDOW, MIXTRAL_WINDOW)]
 # The shape each kernel's summary entry reports: granite-8b at the engine's
 # prompt and cache sizes; mamba2-370m's 512-token prefill.
 SUMMARY_FLASH = (1, 512, 512, 32, 8, 128, True, 0)
@@ -233,8 +258,17 @@ def phase_device() -> str:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    check_tf32_off()
     print("tf32 off for matmul and cudnn: plain float32 versions compute in full float32")
     return smi
+
+
+def check_tf32_off() -> None:
+    """The MoE router's float32 product, and every float32 comparison, is
+    float32 only while TF32 stays off."""
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: float32 products would round to TF32")
 
 
 def phase_build() -> None:
@@ -304,7 +338,8 @@ def check_flash(case, dtype, gpu, seed=0) -> dict:
     q, k, v = (_randn(gen, (b, s, n, d), dtype) for s, n in ((s_q, h), (s_kv, kv), (s_kv, kv)))
     off = s_kv - s_q if causal else 0
     got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
-    want = ref.mha(q, k, v, causal=causal, window=window, q_offset=off)
+    # the plain route: banded where ref.uses_banded holds, masked elsewhere
+    want = ref.flash_plain(q, k, v, causal=causal, window=window, q_offset=off)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     mask = ref.attention_mask(s_q, s_kv, causal=causal, window=window, q_offset=off, device=DEVICE)
@@ -326,8 +361,11 @@ def check_flash(case, dtype, gpu, seed=0) -> dict:
     return {
         "kernel": "flash_attention", "case": list(case), "dtype": str(dtype).split(".")[-1],
         "route": fa.route(dtype), "max_abs_err": err, "atol": ATOL[dtype],
+        "plain_route": "banded" if ref.uses_banded(s_q, s_kv, causal=causal, window=window,
+                                                   q_offset=off) else "masked",
         "sdpa_max_abs_err": lib_err, "ms": ms,
-        "plain_ms": time_ms(lambda: ref.mha(q, k, v, causal=causal, window=window, q_offset=off)),
+        "plain_ms": time_ms(lambda: ref.flash_plain(q, k, v, causal=causal, window=window,
+                                                    q_offset=off)),
         "library_ms": time_ms(lambda: _sdpa(qt, kt, vt, **lib_args)),
         "bound_ms": bms, "bound_by": by, "tflops": flops / ms * 1e-9, "bound_share": bms / ms,
     }
@@ -502,7 +540,9 @@ def phase_kernels(gpu: str) -> dict:
             + [(check_ssd, c, dt) for c in SSD_CASES for dt in SSD_ATOL]
             + [(check_flash, c, torch.bfloat16) for c in SLICE_FLASH]
             + [(check_decode, c, torch.bfloat16) for c in SLICE_DECODE]
-            + [(check_ssd, c, torch.bfloat16) for c in SLICE_SSD])
+            + [(check_ssd, c, torch.bfloat16) for c in SLICE_SSD]
+            + [(check_flash, c, torch.bfloat16) for c in MIXTRAL_FLASH]
+            + [(check_decode, c, torch.bfloat16) for c in MIXTRAL_DECODE])
     for fn, case, dtype in runs:
         row = fn(case, dtype, gpu)
         emit({"phase": "kernel", **row})
@@ -519,42 +559,109 @@ def phase_kernels(gpu: str) -> dict:
 # Phase 4: full-width models through the kernels and the plain versions
 # ---------------------------------------------------------------------------
 
-def _compare(cfg, params, tokens, path, ref_path, held: bool, label: str,
-             steps: int = 8, max_len: int = 1024) -> None:
-    """Prefill ``tokens`` and decode ``steps`` tokens through two paths, each
-    an (api, impl) pair, comparing the logits at every step.  Held: within
-    5e-2 of max|logits| at every step and the same greedy token at all but
-    two steps; otherwise the numbers are printed and only finiteness holds."""
-    (api_a, impl_a), (api_b, impl_b) = path, ref_path
-    prompt_len = tokens.shape[1]
-    la, ca = api_a.prefill(params, {"tokens": tokens}, max_len, impl=impl_a)
-    lb, cb = api_b.prefill(params, {"tokens": tokens}, max_len, impl=impl_b)
+@contextlib.contextmanager
+def _recorded_routes():
+    """Record the expert ids (B, S, K) of every ``moe._router`` call made
+    inside the block, in call order: layer by layer, prefill then decode."""
+    from repro_torch.models import moe
+
+    routes, router = [], moe._router
+
+    def recording(x, p, cfg):
+        out = router(x, p, cfg)
+        routes.append(out[1])
+        return out
+
+    moe._router = recording
+    try:
+        yield routes
+    finally:
+        moe._router = router
+
+
+@contextlib.contextmanager
+def _masked_plain():
+    """The plain route without its banded form: ``ref.mha`` for every window."""
+    from repro_torch.kernels.attention import ref
+
+    rule = ref.uses_banded
+    ref.uses_banded = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        ref.uses_banded = rule
+
+
+def _run_path(api, impl, params, tokens, steps: int, max_len: int, feed=None):
+    """Prefill ``tokens``, then ``steps`` greedy decode steps (or the tokens
+    of ``feed``) through ``api`` with ``impl``.  Returns (float32 logits per
+    step, the tokens fed, the expert ids of every MoE router call)."""
+    with _recorded_routes() as routes:
+        logits, caches = api.prefill(params, {"tokens": tokens}, max_len, impl=impl)
+        out, fed = [logits.float()], []
+        for step in range(steps):
+            tok = feed[step] if feed is not None else logits.argmax(-1)
+            fed.append(tok)
+            logits, caches = api.decode_step(params, caches, tok, tokens.shape[1] + step,
+                                             max_len, impl=impl)
+            out.append(logits.float())
+    return out, fed, routes
+
+
+def _route_flip_share(ra, rb) -> float:
+    """The share of (token, layer) pairs whose set of experts differs."""
+    pairs = differ = 0
+    for a, b in zip(ra, rb, strict=True):
+        a, b = a.sort(-1).values, b.sort(-1).values
+        differ += int((a != b).any(-1).sum())
+        pairs += a[..., 0].numel()
+    return differ / pairs
+
+
+def _compare_runs(cfg, dtype, run_a, run_b, held: bool, label: str, rtol: float = 5e-2) -> dict:
+    """Compare two runs of ``_run_path`` (the second fed the first's tokens)
+    step by step.  Held: within ``rtol`` of max|logits| at every step and the
+    same greedy token at all but two steps; otherwise the numbers are
+    printed and only finiteness holds.  For an MoE model the share of
+    (token, layer) pairs routed to another set of experts is printed too."""
+    (la, _, ra), (lb, _, rb) = run_a, run_b
     rows = []
-    for step in range(steps + 1):
-        diff = float((la.float() - lb.float()).abs().max())
-        scale = float(lb.float().abs().max())
-        ta, tb = int(la[0].argmax()), int(lb[0].argmax())
-        finite = bool(torch.isfinite(la).all() and torch.isfinite(lb).all())
+    for step, (a, b) in enumerate(zip(la, lb, strict=True)):
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        ta, tb = int(a[0].argmax()), int(b[0].argmax())
+        finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
         rows.append({"step": step, "max_abs_diff": diff, "max_abs_logit": scale,
                      "rel": diff / scale, "token_a": ta, "token_b": tb, "finite": finite})
         emit({"phase": "model", "arch": cfg.name, "compare": label, "held": held,
-              "dtype": str(params["final_norm"]["scale"].dtype), **rows[-1]})
+              "dtype": str(dtype), **rows[-1]})
         check(finite, f"{cfg.name} {label}: non-finite logits at step {step}")
         if held:
-            check(diff <= 5e-2 * scale,
-                  f"{cfg.name} {label} step {step}: max|dlogits| {diff} > 5e-2 * {scale}")
-        if step == steps:
-            break
-        tok = torch.tensor([ta], device=DEVICE)  # both paths decode the first path's token
-        la, ca = api_a.decode_step(params, ca, tok, prompt_len + step, max_len, impl=impl_a)
-        lb, cb = api_b.decode_step(params, cb, tok, prompt_len + step, max_len, impl=impl_b)
+            check(diff <= rtol * scale,
+                  f"{cfg.name} {label} step {step}: max|dlogits| {diff} > {rtol} * {scale}")
     agree = sum(r["token_a"] == r["token_b"] for r in rows)
-    emit({"phase": "model", "arch": cfg.name, "compare": label, "held": held,
-          "greedy_agreement": agree, "steps": len(rows),
-          "max_rel": max(r["rel"] for r in rows)})
+    summary = {"phase": "model", "arch": cfg.name, "layers": cfg.num_layers, "compare": label,
+               "held": held, "rtol": rtol if held else None, "greedy_agreement": agree,
+               "steps": len(rows), "max_rel": max(r["rel"] for r in rows)}
+    if ra:
+        summary["route_flip_share"] = _route_flip_share(ra, rb)
+        summary["routed_pairs"] = sum(r[..., 0].numel() for r in ra)
+    emit(summary)
     if held:
         check(agree >= len(rows) - 2,
               f"{cfg.name} {label}: greedy tokens agree on {agree} of {len(rows)} steps")
+    return summary
+
+
+def _compare(cfg, params, tokens, path, ref_path, held: bool, label: str,
+             steps: int = 8, max_len: int = 1024, rtol: float = 5e-2) -> dict:
+    """Prefill ``tokens`` and decode ``steps`` tokens through two paths, each
+    an (api, impl) pair, the second fed the first's greedy tokens; compare
+    the logits at every step (``_compare_runs``)."""
+    run_a = _run_path(*path, params, tokens, steps, max_len)
+    run_b = _run_path(*ref_path, params, tokens, steps, max_len, feed=run_a[1])
+    return _compare_runs(cfg, params["final_norm"]["scale"].dtype, run_a, run_b, held, label,
+                         rtol)
 
 
 def phase_model(arch: str, dtype=torch.bfloat16, held: bool = True, reduced: bool = False,
@@ -589,6 +696,64 @@ def phase_model(arch: str, dtype=torch.bfloat16, held: bool = True, reduced: boo
                      f"plain_chunk_{cfg.ssm_chunk_size // 2}_vs_{cfg.ssm_chunk_size}")
     del params
     torch.cuda.empty_cache()
+
+
+def phase_moe_model(arch: str, dtype, num_layers: int | None = None, prompt_len: int = 512,
+                    steps: int = 8, held: bool = True, rtol: float = 5e-2,
+                    yardstick: bool = False) -> dict:
+    """``arch`` (an MoE model) at published widths, cut in depth to
+    ``num_layers`` if given, through the kernels and through the plain
+    versions: a prompt of ``prompt_len`` tokens, then ``steps`` decode steps
+    (for mixtral-8x7b's window of 4096 and a prompt of 8192, the plain
+    prefill is banded and every decode step writes into a rolled cache).
+
+    Held in float32.  Not held in bfloat16: with seeded random weights a
+    one-step bfloat16 difference between the routes flips the top-k choice
+    where two experts nearly tie, and the flip moves that token's output by
+    the whole difference of two experts.  The run prints the logits gap and
+    the share of (token, layer) pairs routed to another set of experts, and
+    with ``yardstick`` the same two numbers for a mere change of the plain
+    route's attention form (masked ``mha`` against banded)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import decode_attention as da, flash_attention as fa
+    from repro_torch.models.model import build_model
+
+    check_tf32_off()
+    cfg = get_config(arch)
+    if num_layers is not None:
+        print(f"{arch}: depth cut to {num_layers} of {cfg.num_layers} layers", flush=True)
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    api = build_model(cfg)
+    params = api.init(0, dtype=dtype, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=DEVICE)
+    max_len = 2 * prompt_len  # a window's cache holds min(window, max_len) entries
+    label = "kernels_vs_plain"
+    with torch.no_grad():
+        before = (fa.launches, da.launches)
+        torch.cuda.reset_peak_memory_stats()
+        kernels = _run_path(api, None, params, tokens, steps, max_len)
+        launches = (fa.launches - before[0], da.launches - before[1])
+        plain = _run_path(api, "ref", params, tokens, steps, max_len, feed=kernels[1])
+        check((fa.launches - before[0], da.launches - before[1]) == launches,
+              f"{arch}: the plain route launched a kernel")
+        emit({"phase": "moe_model", "arch": arch, "layers": cfg.num_layers,
+              "dtype": str(dtype), "prompt": prompt_len, "steps": steps,
+              "cache_entries": api.cache_decls(1, max_len)["blocks"][0]["k"].shape[1],
+              "flash_launches": launches[0], "decode_launches": launches[1],
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        check(launches == (cfg.num_layers, steps * cfg.num_layers),
+              f"{arch}: {launches} flash and decode launches for one prefill and {steps} steps")
+        out = _compare_runs(cfg, dtype, kernels, plain, held, label, rtol)
+        if yardstick:
+            with _masked_plain():
+                masked = _run_path(api, "ref", params, tokens, steps, max_len, feed=kernels[1])
+            _compare_runs(cfg, dtype, masked, plain, False, "plain_masked_vs_banded")
+    check_tf32_off()
+    del params, kernels, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -661,6 +826,7 @@ def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513),
                 for _ in range(rng.poisson(rates[name])):
                     eng.submit(name, rng.integers(0, vocab, int(rng.integers(*prompt))), 32)
         before = {n: {k: list(v) for k, v in kinds.items()} for n, kinds in spent.items()}
+        launched = {name: mod.launches for name, mod in counters.items()}
         t = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
@@ -675,6 +841,8 @@ def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513),
               "decode_steps": total["decode_calls"], "decode_s": total["decode_s"],
               "other_s": tick_s[-1] - total["prefill_s"] - total["decode_s"],
               "tokens": eng.history[-1]["decode_tokens"], "per_agent": per_agent,
+              "launches": {name: mod.launches - launched[name] for name, mod in counters.items()},
+              "gib_allocated": torch.cuda.memory_allocated() / 2**30,
               **{k: eng.history[-1][k] for k in ("warm", "pending", "revoked_frac", "down",
                                                  "routed")}})
     launches = {name: mod.launches for name, mod in counters.items()}
@@ -736,6 +904,55 @@ def phase_two_agent_engine(reduced: bool = False, max_len: int = 1024,
     n_ssm = rts["slow"].api.cfg.num_layers
     check(out["launches"]["ssd"] == n_ssm * out["prefills"]["slow"],
           f"{out['launches']['ssd']} SSD launches for {out['prefills']['slow']} mamba prefills")
+    return out["launches"]
+
+
+HISTORY_FIELDS = ("allocation", "queues", "decode_tokens", "routed", "warm", "pending",
+                  "revoked_frac", "down")
+
+
+def same_schedule(eng, twin) -> dict:
+    """Which scheduling fields of the history, and whether ``metrics()``,
+    are equal between an engine and its twin."""
+    same = {k: [h[k] for h in eng.history] == [h[k] for h in twin.history]
+            for k in HISTORY_FIELDS}
+    same["metrics"] = _finite(eng.metrics()) == _finite(twin.metrics())
+    return same
+
+
+def phase_table_i_engine(ticks: int = 8, max_len: int = 1024, budget_tokens: int = 2048) -> dict:
+    """The paper's Table I fleet (``DEFAULT_FLEET``) at published widths, with
+    mixtral-8x7b cut in depth to fit the card (``FULL_WIDTH_CUT``), over
+    ``ticks`` ticks of Poisson arrivals at the Table I rates; then the same
+    engine at reduced widths on the CPU over the same arrival schedule must
+    schedule exactly as the card (the schedule depends on prompt lengths,
+    token counts, budgets, slots and ``max_len``, never on the logits)."""
+    from repro_torch.launch.serve import DEFAULT_FLEET, FULL_WIDTH_CUT, build_engine
+
+    t0 = time.perf_counter()
+    eng = build_engine("adaptive", reduced=False, fleet=DEFAULT_FLEET, num_layers=FULL_WIDTH_CUT,
+                       budget_tokens=budget_tokens, max_len=max_len, batch_slots=4,
+                       device=DEVICE)
+    print(f"table_i engine built in {time.perf_counter() - t0:.1f} s; depth cut "
+          f"{FULL_WIDTH_CUT} (layers of 32), widths uncut", flush=True)
+    schedule = poisson_schedule({name: rate for name, *_, rate in DEFAULT_FLEET}, ticks=ticks)
+    out = drive(eng, {}, "table_i", ticks=ticks, schedule=schedule)
+    for name in ("flash_attention", "decode_attention"):
+        check(out["launches"][name] > 0, f"{name} was never launched on the Table I fleet")
+    for name, done in out["completed"].items():
+        check(done > 0, f"agent {name!r} completed no request on the Table I fleet")
+
+    t0 = time.perf_counter()
+    twin = build_engine("adaptive", reduced=True, fleet=DEFAULT_FLEET,
+                        budget_tokens=budget_tokens, max_len=max_len, batch_slots=4,
+                        device="cpu")
+    for tick in range(ticks):
+        submit_tick(twin, schedule[tick])
+        twin.step()
+    same = same_schedule(eng, twin)
+    emit({"phase": "table_i_schedule", "same_as_cpu": same,
+          "cpu_twin_s": time.perf_counter() - t0, "metrics_cpu": _finite(twin.metrics())})
+    check(all(same.values()), f"table_i: the card and the CPU schedule differently: {same}")
     return out["launches"]
 
 
@@ -1167,8 +1384,6 @@ def profile_simulator(host_s: float, policy: str = "adaptive") -> None:
 # with one retry).  SERVERLESS_SEED is the failure seed, chosen so that the
 # revocation chain turns on within the 8 ticks.
 SERVERLESS_SEED = 0
-SERVERLESS_HISTORY = ("allocation", "queues", "decode_tokens", "routed", "warm", "pending",
-                      "revoked_frac", "down")
 
 
 def serverless_engine(reduced: bool, device, budget_tokens: int = 1024, max_len: int = 1024):
@@ -1229,9 +1444,7 @@ def phase_serverless_engine(ticks: int = 8) -> dict:
     for tick in range(ticks):
         submit_tick(twin, schedule[tick])
         twin.step()
-    same = {k: [h[k] for h in eng.history] == [h[k] for h in twin.history]
-            for k in SERVERLESS_HISTORY}
-    same["metrics"] = _finite(eng.metrics()) == _finite(twin.metrics())
+    same = same_schedule(eng, twin)
     emit({"phase": "serverless_schedule", "same_as_cpu": same,
           "cpu_twin_s": time.perf_counter() - t0, "metrics_cpu": _finite(twin.metrics())})
     check(all(same.values()), f"serverless: the card and the CPU schedule differently: {same}")
@@ -1242,54 +1455,79 @@ def phase_serverless_engine(ticks: int = 8) -> dict:
 # Phase 7: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
-def phase_profile(arch: str = "granite-8b", batch: int = 4, prompt_len: int = 300,
-                  steps: int = 20, profiled: int = 5) -> None:
-    """Full-width ``arch``: the host-clock time of a decode step at ``batch``
-    rows and a ``prompt_len`` cache, against the device time of the same
-    steps in ``torch.profiler`` (summed over every kernel), so the device's
-    busy share of a step is device time over host time.  Run last: once
-    started, the profiler's device tracing stays attached to the process."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILED_MODELS = (("granite-8b", None), ("mixtral-8x7b", 16))
 
+
+def _decode_steps(api, params, n, caches, tok, pos):
+    """``n`` decode steps from position ``pos``, synced; host seconds each."""
+    times = []
+    for step in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = api.decode_step(params, caches, tok, pos + step, 1024)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        tok = logits.argmax(-1).reshape(-1)
+    return times, caches, tok
+
+
+def time_decode_steps(models=PROFILED_MODELS, batch: int = 4, prompt_len: int = 300,
+                      steps: int = 20) -> list:
+    """Each full-width model of ``models`` ((arch, depth cut or None)): the
+    host-clock time of ``steps`` decode steps at ``batch`` rows after a
+    ``prompt_len`` prefill.  Every model is timed before the first profile:
+    once started, the profiler's device tracing stays attached to the
+    process and slows every later launch on the host.  Returns each model's
+    state for ``profile_decode_step``."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
-    cfg = get_config(arch)
-    api = build_model(cfg)
-    params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=DEVICE)
-
-    def run(n, caches, tok, pos):
-        times = []
-        for step in range(n):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            logits, caches = api.decode_step(params, caches, tok, pos + step, 1024)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            tok = logits.argmax(-1).reshape(-1)
-        return times, caches, tok
-
+    timed = []
     with torch.no_grad():
-        logits, caches = api.prefill(params, {"tokens": tokens}, 1024)
-        tok = logits.argmax(-1).reshape(-1)
-        host, caches, tok = run(steps, caches, tok, prompt_len)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, caches, tok = run(profiled, caches, tok, prompt_len + steps)
+        for arch, num_layers in models:
+            cfg = get_config(arch)
+            if num_layers is not None:
+                cfg = dataclasses.replace(cfg, num_layers=num_layers)
+            api = build_model(cfg)
+            params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
+            gen = torch.Generator(device=DEVICE).manual_seed(2)
+            tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                                   device=DEVICE)
+            logits, caches = api.prefill(params, {"tokens": tokens}, 1024)
+            host, caches, tok = _decode_steps(api, params, steps, caches,
+                                              logits.argmax(-1).reshape(-1), prompt_len)
+            timed.append({"cfg": cfg, "api": api, "params": params, "caches": caches,
+                          "tok": tok, "pos": prompt_len + steps, "host": host,
+                          "batch": batch, "cache_len": prompt_len})
+    return timed
+
+
+def profile_decode_step(state: dict, profiled: int = 5) -> None:
+    """``profiled`` more decode steps of a ``time_decode_steps`` model in
+    ``torch.profiler``: the device time (summed over every kernel) over the
+    host-clock step time is the device's busy share of a step; and the
+    device kernels per step and layer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = state["cfg"]
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _decode_steps(state["api"], state["params"], profiled, state["caches"], state["tok"],
+                      state["pos"])
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / profiled / 1e3
     decode_ms = sum(e.time_range.elapsed_us() for e in kernels
                     if "repro::" in e.name and "decode_" in e.name) / profiled / 1e3
+    host = state["host"]
     host_ms = statistics.median(host) * 1e3
-    emit({"phase": "profile", "arch": arch, "batch": batch, "cache_len": prompt_len,
+    per_step = len(kernels) / profiled
+    emit({"phase": "profile", "arch": cfg.name, "layers": cfg.num_layers,
+          "batch": state["batch"], "cache_len": state["cache_len"],
           "host_step_ms": host_ms, "host_step_ms_min": min(host) * 1e3,
           "device_ms_per_step": device_ms, "busy_share": device_ms / host_ms,
           "decode_attention_device_ms_per_step": decode_ms,
-          "device_kernels_per_step": len(kernels) / profiled})
-    check(device_ms > 0, "the profiler saw no device time in a decode step")
-    del params
-    torch.cuda.empty_cache()
+          "device_kernels_per_step": per_step,
+          "device_kernels_per_layer": per_step / cfg.num_layers})
+    check(device_ms > 0, f"the profiler saw no device time in a {cfg.name} decode step")
 
 
 def main() -> None:
@@ -1307,10 +1545,20 @@ def main() -> None:
     phase_model("granite-8b")
     phase_model("mamba2-370m", torch.float32)
     phase_model("mamba2-370m", torch.bfloat16, held=False)
+    # mixtral-8x7b: an 8192-token prompt (banded on the plain route), then
+    # decode steps into the rolled cache; float32 held at 4 layers, bf16 at
+    # the fleet's 16 printed beside its yardstick.  granite-moe whole.
+    phase_moe_model("mixtral-8x7b", torch.float32, num_layers=4, prompt_len=8192, rtol=1e-3)
+    phase_moe_model("granite-moe-1b-a400m", torch.float32, prompt_len=512, steps=4, rtol=1e-3)
+    phase_moe_model("mixtral-8x7b", torch.bfloat16, num_layers=16, prompt_len=8192,
+                    held=False, yardstick=True)
     dense = phase_engine()
     gc.collect()
     torch.cuda.empty_cache()
     two_agent = phase_two_agent_engine()
+    gc.collect()
+    torch.cuda.empty_cache()
+    table_i = phase_table_i_engine()
     gc.collect()
     torch.cuda.empty_cache()
     sim_walls = phase_table2()
@@ -1319,10 +1567,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     # Last: the profiler's device tracing, once started, stays attached to
-    # the process and would slow every later launch on the host.
-    phase_profile()
+    # the process and would slow every later launch on the host; so every
+    # profiled decode step's host clock is read first.
+    granite, mixtral = time_decode_steps()
+    profile_decode_step(granite)
     check_decode_launches()
     check_ssd_launches()
+    profile_decode_step(mixtral)
+    del granite, mixtral
+    gc.collect()
+    torch.cuda.empty_cache()
     profile_simulator(sim_walls["adaptive"])
     profile_sweep(sweep_walls["table2"])
     sources = {
@@ -1341,11 +1595,12 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": two_agent[name],
             "launches_by_fleet": {"dense": dense[name], "two_agent": two_agent[name],
-                                  "serverless": serverless[name]},
+                                  "serverless": serverless[name], "table_i": table_i[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["case"], "dtype": row["dtype"],
         })
+    check_tf32_off()
     print(f"total {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

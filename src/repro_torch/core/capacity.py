@@ -39,6 +39,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+
 _EPS = 1e-9
 
 # Length of the cold-start delay line: one slot per whole second a
@@ -195,8 +197,10 @@ class CapacityState:
     idle_s: torch.Tensor    # (...,)
 
 
-def init_capacity_state(g_total: float, device="cpu", batch_shape: tuple = ()) -> CapacityState:
-    """The pool at t=0: the provisioned baseline is already warm."""
+def init_capacity_state(g_total: float, device="cuda", batch_shape: tuple = ()) -> CapacityState:
+    """The pool at t=0: the provisioned baseline is already warm, on
+    ``device`` (``cuda`` unless the caller asks for the host)."""
+    device = resolve_device(device)
     return CapacityState(
         warm=torch.full(batch_shape, g_total, dtype=torch.float32, device=device),
         pipeline=torch.zeros(batch_shape + (COLD_START_HORIZON,), dtype=torch.float32,

@@ -39,6 +39,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import prng
 
 # Retry classes tracked per agent: class 0 is first-attempt mass, classes
@@ -216,8 +217,11 @@ class FailureState(NamedTuple):
     retry_q: torch.Tensor     # (..., RETRY_CLASSES-1, N) retried mass
 
 
-def init_failure_state(num_agents: int, device="cpu", batch_shape: tuple = (),
+def init_failure_state(num_agents: int, device="cuda", batch_shape: tuple = (),
                        chain_shape: tuple = ()) -> FailureState:
+    """Every chain off and nothing to retry, on ``device`` (``cuda`` unless
+    the caller asks for the host)."""
+    device = resolve_device(device)
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
     return FailureState(rev_on=z(*chain_shape), down=z(*chain_shape, num_agents),
                         fail_prev=z(*chain_shape), recovering=z(*batch_shape),

@@ -9,7 +9,7 @@ float32 runs on the FMA pipes (``flash_attention.cu``), since a TF32
 product would miss float32's tolerance.  Each route launches its kernel or
 raises; neither falls back to the other or to the plain version.
 
-On a CPU tensor the wrapper computes the plain version, ``ref.mha``.
+On a CPU tensor the wrapper computes the plain version, ``ref.flash_plain``.
 ``launches`` counts the kernel launches this process made.
 """
 from __future__ import annotations
@@ -53,7 +53,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """q (B,S_q,H,D), k/v (B,S_kv,KV,D) -> (B,S_q,H,D) in q's dtype."""
     if q.device.type == "cpu":
-        return ref.mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return ref.flash_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     check_operands("flash_attention", {"q": q, "k": k, "v": v})
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]

@@ -11,7 +11,13 @@ Decode:
 window=0`` = bidirectional (encoder) or cross attention.  GQA is a grouped
 einsum (q reshaped to (B,S,KV,G,D)); K/V are never repeated.  The rounding
 points follow the reference: logits in the inputs' common type, softmax in
-float32, probabilities cast to v's type before the value product.
+float32, probabilities cast to v's type before the value product.  The
+float32 logits are masked and normalized in place (the values are the
+reference's): at a long prompt they are the largest tensor, 8.6 GB for
+mixtral-8x7b's 32 heads at 8192 tokens.
+
+``flash_plain`` is the plain route of ``ops.flash_attention``: the banded
+form where the reference's dispatch picks it, ``mha`` elsewhere.
 """
 from __future__ import annotations
 
@@ -39,9 +45,19 @@ def attention_mask(s_q: int, s_kv: int, *, causal: bool, window: int = 0,
     return mask
 
 
-def _softmax_f32(logits: torch.Tensor) -> torch.Tensor:
-    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    return probs / probs.sum(dim=-1, keepdim=True)
+def _masked_softmax_(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The reference's float32 softmax, exp(x - max) / sum, of ``logits``
+    where ``mask`` holds and NEG_INF where it does not, computed in the
+    float32 ``logits`` tensor itself."""
+    logits.masked_fill_(~mask, NEG_INF)
+    logits.sub_(logits.amax(dim=-1, keepdim=True)).exp_()
+    return logits.div_(logits.sum(dim=-1, keepdim=True))
+
+
+def _logits_f32(eq: str, q, k, d: int) -> torch.Tensor:
+    """Scaled float32 logits of ``einsum(eq, q, k)`` in the inputs' common type."""
+    ct = torch.promote_types(q.dtype, k.dtype)
+    return torch.einsum(eq, q.to(ct), k.to(ct)).float().mul_(softmax_scale(d))
 
 
 def mha(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
@@ -49,15 +65,66 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0) -> 
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]
     g = h // kv
-    ct = torch.promote_types(q.dtype, k.dtype)
-    qg = q.reshape(b, s_q, kv, g, d).to(ct)
-    logits = torch.einsum("bqngd,bknd->bngqk", qg, k.to(ct)).float() * softmax_scale(d)
+    logits = _logits_f32("bqngd,bknd->bngqk", q.reshape(b, s_q, kv, g, d), k, d)
     mask = attention_mask(s_q, s_kv, causal=causal, window=window,
                           q_offset=q_offset, device=q.device)
-    logits = torch.where(mask[None, None, None], logits, torch.full_like(logits, NEG_INF))
-    probs = _softmax_f32(logits)
+    probs = _masked_softmax_(logits, mask)
     out = torch.einsum("bngqk,bknd->bqngd", probs.to(v.dtype), v)
     return out.reshape(b, s_q, h, d).to(q.dtype)
+
+
+def mha_banded(q, k, v, *, window: int) -> torch.Tensor:
+    """Sliding-window causal attention computed banded (port of the
+    reference's ``mha_banded``): with blocks of ``window`` queries, block c
+    attends only to kv blocks c-1 and c, so the work is 2·W keys per query
+    instead of S.  Equal to ``mha(causal=True, window=W)`` when S % W == 0;
+    block 0's previous block is fully masked.
+
+    The logits of a query block's two kv blocks are one product over 2·W
+    keys (the previous block's first; each logit is the same dot product as
+    in the reference's two), normalized together; the output is, as in the
+    reference, one product per kv block, each rounded to v's type, added.
+    """
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g, w = h // kv, window
+    if w <= 0 or s % w:
+        raise ValueError(f"mha_banded: S={s} is not a positive multiple of window={w}")
+    nb = s // w
+
+    def prev_and_cur(x):  # (B, S, KV, D) -> the blocks (B, NB, W, KV, D), c-1 and c
+        xb = x.reshape(b, nb, w, kv, d)
+        return torch.cat([torch.zeros_like(xb[:, :1]), xb[:, :-1]], dim=1), xb
+
+    logits = _logits_f32("bcqngd,bcknd->bcngqk", q.reshape(b, nb, w, kv, g, d),
+                         torch.cat(prev_and_cur(k), dim=2), d)  # (B,NB,KV,G,W,2W)
+    qi = torch.arange(w, device=q.device)[:, None]
+    kj = torch.arange(w, device=q.device)[None, :]
+    # previous block: k_pos = kj + (c-1)w, q_pos = qi + cw -> k > q - w <=> kj > qi;
+    # current block: causal (k > q - w holds within a block)
+    mask = torch.cat([kj > qi, kj <= qi], dim=1)[None].repeat(nb, 1, 1)
+    mask[0, :, :w] = False
+    p_prev, p_cur = _masked_softmax_(logits, mask[None, :, None, None]).to(v.dtype).split(w, -1)
+    v_prev, v_cur = prev_and_cur(v)
+    out = torch.einsum("bcngqk,bcknd->bcqngd", p_cur, v_cur)
+    out = out + torch.einsum("bcngqk,bcknd->bcqngd", p_prev, v_prev)
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def uses_banded(s_q: int, s_kv: int, *, causal: bool, window: int, q_offset: int) -> bool:
+    """Where the plain route computes ``mha_banded``: the reference's rule
+    (``repro/kernels/attention/ops.py:29``)."""
+    return (causal and window > 0 and q_offset == 0 and s_q == s_kv
+            and s_q % window == 0 and s_q >= 2 * window)
+
+
+def flash_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                q_offset: int = 0) -> torch.Tensor:
+    """The plain version of flash attention: banded where ``uses_banded``
+    holds (2·W work per query instead of S), else ``mha``."""
+    if uses_banded(q.shape[1], k.shape[1], causal=causal, window=window, q_offset=q_offset):
+        return mha_banded(q, k, v, window=window)
+    return mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tensor:
@@ -70,9 +137,7 @@ def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tens
     b, h, d = q.shape
     s_max, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
-    ct = torch.promote_types(q.dtype, k_cache.dtype)
-    qg = q.reshape(b, kv, g, d).to(ct)
-    logits = torch.einsum("bngd,bknd->bngk", qg, k_cache.to(ct)).float() * softmax_scale(d)
+    logits = _logits_f32("bngd,bknd->bngk", q.reshape(b, kv, g, d), k_cache, d)
     if isinstance(cache_len, int):  # a fill on the device, no host-to-device copy
         cache_len = torch.full((b,), cache_len, device=q.device)
     else:
@@ -83,7 +148,6 @@ def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tens
     valid = pos < cache_len[:, None]
     if window > 0:
         valid &= pos >= (cache_len[:, None] - window)
-    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
-    probs = _softmax_f32(logits)
+    probs = _masked_softmax_(logits, valid[:, None, None, :])
     out = torch.einsum("bngk,bknd->bngd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, h, d).to(q.dtype)

@@ -2,15 +2,24 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --policy adaptive --ticks 20
 
-Port of ``repro/launch/serve.py``.  ``DEFAULT_FLEET`` is the reference's
-Table I fleet row for row; its mixtral-8x7b agent needs the MoE family
-(ROADMAP A5), so ``DENSE_FLEET`` serves the same agents — same names,
-``min_gpu``, priorities and rates — from dense backbones, with granite-8b
-standing in for mixtral until MoE is ported.
+Port of ``repro/launch/serve.py``.  ``main`` serves ``DEFAULT_FLEET``, the
+reference's Table I fleet row for row: qwen2-vl-2b as the coordinator and
+the vision specialist (one parameter set), granite-8b, and mixtral-8x7b as
+the reasoning specialist.  ``DENSE_FLEET`` serves the same agents — same
+names, ``min_gpu``, priorities and rates — from dense backbones only, with
+granite-8b in mixtral's place.
+
+At published widths (``--full``) the fleet does not fit one 80 GB card:
+mixtral-8x7b alone holds 46.70B parameters, 93.4 GB in bfloat16.  ``--full``
+therefore cuts mixtral in depth only, to 16 of its 32 layers
+(``FULL_WIDTH_CUT``: 23.5B parameters, 47.0 GB), beside granite-8b (16.5 GB)
+and the shared qwen2-vl-2b set (3.6 GB); widths, experts, top-k, window and
+vocabulary are never cut.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
@@ -35,17 +44,28 @@ DENSE_FLEET = tuple(
     for name, arch, *rest in DEFAULT_FLEET
 )
 
+# The depth cut that fits DEFAULT_FLEET at published widths on one 80 GB card.
+FULL_WIDTH_CUT = {"mixtral-8x7b": 16}
+
 
 def build_engine(policy: str, *, reduced: bool = True, budget_tokens: int = 64,
                  max_len: int = 64, batch_slots: int = 4, fleet=DEFAULT_FLEET,
-                 device="cuda", seed: int = 0) -> FleetEngine:
+                 num_layers: dict[str, int] | None = None, device="cuda",
+                 seed: int = 0) -> FleetEngine:
     """One engine over ``fleet``.  Every agent's weights come from the same
     seed, as in the reference (one ``jax.random.key(0)`` for all), so agents
-    on one architecture share one parameter set on the device."""
+    on one architecture share one parameter set on the device.
+    ``num_layers`` cuts the named architectures to that many layers (a cut
+    only: more layers than the config's raise)."""
     dev = resolve_device(device)
     specs, rts, params = [], {}, {}
     for name, arch, tput, min_gpu, pri, _rate in fleet:
         cfg = get_config(arch, reduced=reduced)
+        if num_layers and arch in num_layers:
+            if not 0 < num_layers[arch] <= cfg.num_layers:
+                raise ValueError(f"{cfg.name}: a cut to {num_layers[arch]} of "
+                                 f"{cfg.num_layers} layers")
+            cfg = dataclasses.replace(cfg, num_layers=num_layers[arch])
         api = build_model(cfg)
         if arch not in params:
             params[arch] = api.init(seed, device=dev)
@@ -68,9 +88,12 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
-    fleet = DENSE_FLEET
+    fleet = DEFAULT_FLEET
+    cut = FULL_WIDTH_CUT if args.full else None
+    if cut:
+        print(f"published widths; depth cut to fit one card: {cut}", flush=True)
     eng = build_engine(args.policy, reduced=not args.full, budget_tokens=args.budget_tokens,
-                       fleet=fleet, device=args.device, seed=args.seed)
+                       fleet=fleet, num_layers=cut, device=args.device, seed=args.seed)
     vocab = min(rt.api.cfg.vocab_size for rt in eng.runtimes)
     rng = np.random.default_rng(args.seed)
     for t in range(args.ticks):

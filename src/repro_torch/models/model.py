@@ -1,7 +1,8 @@
-"""Model API (port of ``repro/models/model.py`` for the dense and ssm families).
+"""Model API (port of ``repro/models/model.py`` for the dense, MoE and ssm
+families).
 
 ``build_model(cfg)`` returns a ``ModelApi`` with the entry points the
-serving engine uses.  The dense and ssm families are ported; the others
+serving engine uses.  The dense, MoE and ssm families are ported; the others
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -16,7 +17,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
 
 _NOT_PORTED = {
-    "moe": "ROADMAP A5 (MoE and sliding windows)",
     "hybrid": "ROADMAP A7 (hybrid and enc-dec families)",
     "encdec": "ROADMAP A7 (hybrid and enc-dec families)",
 }

@@ -1,5 +1,6 @@
 """Decoder-only language model over the reference's block patterns (port of
-``repro/models/transformer.py``; the ``attn_mlp`` and ``ssm`` blocks so far).
+``repro/models/transformer.py``; the ``attn_mlp``, ``attn_moe`` and ``ssm``
+blocks so far).
 
 Where the reference groups the layers into superblocks stacked on a leading
 axis and scans over them, the port keeps one parameter dict per layer in a
@@ -11,20 +12,26 @@ Two entry points:
   decode_step(params, caches, token, pos)   -> (logits, caches)
 ``impl`` is passed to the kernel dispatch (``kernels/*/ops.py``): ``None``
 on the main path, ``"ref"`` to run the plain versions for a comparison.
+
+An ``attn_moe`` block's prefill routes with ``cfg.moe_capacity_factor`` and
+its decode with a capacity factor of 2.0, as the reference's do
+(``repro/models/transformer.py:315``).  Its Switch aux loss is not returned:
+``prefill`` returns (logits, caches), as the reference's ``ModelApi`` does,
+and the loss waits for training (ROADMAP A8).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
 
 _NOT_PORTED = {
-    "attn_moe": "ROADMAP A5 (MoE and sliding windows)",
     "rglru_mlp": "ROADMAP A7 (hybrid and enc-dec families)",
 }
+DECODE_CAPACITY_FACTOR = 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +78,13 @@ def _block_decls(kind: str, cfg: ModelConfig) -> dict:
             "ln2": layers.rmsnorm_decls(cfg.d_model),
             "mlp": layers.ffn_decls(cfg.d_model, cfg.d_ff, cfg.ffn_type),
         }
+    if kind == "attn_moe":
+        return {
+            "ln1": layers.rmsnorm_decls(cfg.d_model),
+            "attn": attn.attention_decls(cfg),
+            "ln2": layers.rmsnorm_decls(cfg.d_model),
+            "moe": moe.moe_decls(cfg),
+        }
     if kind == "ssm":
         return {"ln1": layers.rmsnorm_decls(cfg.d_model), "ssm": ssm.ssm_decls(cfg)}
     raise ValueError(kind)
@@ -86,15 +100,18 @@ def model_decls(cfg: ModelConfig) -> dict:
 
 def _block_fwd(kind: str, x, p, cfg: ModelConfig, positions, impl):
     """Full-sequence forward of one block.  Returns (x, cache_seed): (k, v)
-    for ``attn_mlp``, (conv_tail, final_state) for ``ssm``."""
-    if kind == "attn_mlp":
+    for the attention blocks, (conv_tail, final_state) for ``ssm``."""
+    if kind in ("attn_mlp", "attn_moe"):
         h, kv = attn.self_attention(
             layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg, positions,
             causal=True, window=cfg.sliding_window, impl=impl,
         )
         x = x + h
         y = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + layers.ffn(y, p["mlp"], cfg.ffn_type), kv
+        if kind == "attn_mlp":
+            return x + layers.ffn(y, p["mlp"], cfg.ffn_type), kv
+        mo, _aux = moe.moe_ffn(y, p["moe"], cfg, capacity_factor=cfg.moe_capacity_factor)
+        return x + mo, kv
     if kind == "ssm":
         h, state = ssm.ssm_block(layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["ssm"], cfg,
                                  impl=impl)
@@ -135,7 +152,7 @@ def cache_spec(cfg: ModelConfig, max_len: int) -> KVCacheSpec:
 
 def _block_cache_decls(kind: str, cfg: ModelConfig, batch: int, spec: KVCacheSpec):
     _check_ported(kind)
-    if kind == "attn_mlp":
+    if kind in ("attn_mlp", "attn_moe"):
         return attn.kv_cache_decls(cfg, batch, spec)
     if kind == "ssm":
         return ssm.ssm_cache_decls(cfg, batch)
@@ -192,14 +209,17 @@ def _block_decode(kind: str, x, cache, p, cfg: ModelConfig, pos: int, spec: KVCa
                   impl):
     """One token through one block.  Returns (x, cache): an attention cache is
     updated in place, an ssm cache is replaced."""
-    if kind == "attn_mlp":
+    if kind in ("attn_mlp", "attn_moe"):
         h, cache = attn.decode_self_attention(
             layers.rms_norm(x, p["ln1"], cfg.norm_eps), cache, p["attn"], cfg, pos, spec,
             impl=impl,
         )
         x = x + h
-        x = x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.ffn_type)
-        return x, cache
+        y = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if kind == "attn_mlp":
+            return x + layers.ffn(y, p["mlp"], cfg.ffn_type), cache
+        mo, _aux = moe.moe_ffn(y, p["moe"], cfg, capacity_factor=DECODE_CAPACITY_FACTOR)
+        return x + mo, cache
     if kind == "ssm":  # the state carries the position: pos is not used
         h, cache = ssm.ssm_decode_step(layers.rms_norm(x, p["ln1"], cfg.norm_eps), cache,
                                        p["ssm"], cfg)

@@ -152,8 +152,9 @@ class FleetEngine:
             np.broadcast_to(failures.deadline_s.numpy().astype(np.float64),
                             (fleet.num_agents,)).copy()
         )
-        # Warm-pool state: the simulator's ``capacity_step``, run per tick.
-        self._cap_state = cap_mod.init_capacity_state(g_total)
+        # Warm-pool state: the simulator's ``capacity_step``, run per tick on
+        # the host.
+        self._cap_state = cap_mod.init_capacity_state(g_total, device="cpu")
         self.tick = 0
         self._next_id = 0
         self._arrivals_this_tick = np.zeros(fleet.num_agents)

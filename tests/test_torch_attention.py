@@ -159,3 +159,57 @@ def test_flash_route_is_chosen_by_dtype():
     for dtype in (torch.float16, torch.float64, torch.int8):
         with pytest.raises(ValueError, match="dtype"):
             flash_wrapper.route(dtype)
+
+
+@pytest.mark.parametrize("case", [
+    # (b, s, h, kv, d, window)
+    (2, 64, 4, 2, 32, 16),      # four blocks, GQA
+    (1, 256, 8, 8, 64, 128),    # two blocks, MHA
+])
+def test_mha_banded_matches_jax(case):
+    b, s, h, kv, d, w = case
+    q, k, v = _flash_inputs((b, s, s, h, kv, d, True, w), seed=4)
+    got = ref.mha_banded(*map(torch.from_numpy, (q, k, v)), window=w)
+    want = jax_ref.mha_banded(*map(jnp.asarray, (q, k, v)), window=w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    masked = ref.mha(*map(torch.from_numpy, (q, k, v)), causal=True, window=w)
+    np.testing.assert_allclose(got.numpy(), masked.numpy(), atol=ATOL)
+
+
+# (s_q, s_kv, causal, window, q_offset): every clause of the reference's rule
+# on its own, and the cases on either side of it.
+DISPATCH_CASES = [
+    (32, 32, True, 16, 0), (48, 48, True, 16, 0), (64, 64, True, 16, 0),   # banded
+    (16, 16, True, 16, 0),     # one window: S < 2W
+    (40, 40, True, 16, 0),     # S % W != 0
+    (32, 32, False, 16, 0),    # not causal
+    (32, 32, True, 0, 0),      # no window
+    (32, 48, True, 16, 16),    # q_offset > 0, S_q != S_kv
+    (32, 32, True, 16, 4),     # q_offset > 0 alone
+    (32, 64, True, 16, 0),     # S_q != S_kv alone
+]
+
+
+def test_plain_route_picks_banded_exactly_where_the_reference_does(monkeypatch):
+    """``ops.flash_attention(impl="ref")`` and the wrapper's CPU route call
+    ``mha_banded`` for the same cases as ``repro/kernels/attention/ops.py:29``
+    (its unjitted body, with spies on both packages' ``ref`` modules)."""
+    from repro.kernels.attention import ops as jax_ops
+
+    calls = {"jax": [], "torch": []}
+    for pkg, mod in (("jax", jax_ref), ("torch", ref)):
+        for name in ("mha", "mha_banded"):
+            fn = getattr(mod, name)
+            monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, _p=pkg, **kw:
+                                calls[_p].append(_n) or _f(*a, **kw))
+    for s_q, s_kv, causal, window, off in DISPATCH_CASES:
+        q, k, v = _flash_inputs((1, s_q, s_kv, 2, 1, 32, causal, window), seed=5)
+        jax_ops.flash_attention.__wrapped__(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                            window=window, q_offset=off, impl="ref")
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        got = ops.flash_attention(tq, tk, tv, causal=causal, window=window, q_offset=off,
+                                  impl="ref")
+        main = ops.flash_attention(tq, tk, tv, causal=causal, window=window, q_offset=off)
+        torch.testing.assert_close(main, got, rtol=0, atol=0)
+    assert calls["jax"].count("mha_banded") == 3
+    assert calls["torch"] == [n for n in calls["jax"] for _ in range(2)]

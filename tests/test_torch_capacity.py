@@ -70,7 +70,7 @@ def test_capacity_step_matches_the_reference(policy, cold_start_s):
               backlog_per_instance=50.0, min_instances=1.0)
     g_total, num_gpus = 1.0, 6.0
     ref_cfg, cfg = ref.capacity_config(policy, **kw), capacity.capacity_config(policy, **kw)
-    ref_state, state = ref.init_capacity_state(g_total), capacity.init_capacity_state(g_total)
+    ref_state, state = ref.init_capacity_state(g_total), capacity.init_capacity_state(g_total, "cpu")
     warm_seen = set()
     for t in range(STEPS):
         ref_state, ref_warm, ref_pending = _ref_step(
@@ -85,3 +85,13 @@ def test_capacity_step_matches_the_reference(policy, cold_start_s):
         warm_seen.add(float(warm))
     if policy != "fixed":
         assert len(warm_seen) > 2  # the pool really scaled
+
+
+def test_init_capacity_state_defaults_to_the_card():
+    """Like the port's other entry points, the state is made on ``cuda``
+    unless the caller asks for the host, and raises without a CUDA device."""
+    state = capacity.init_capacity_state(2.0, device="cpu", batch_shape=(3,))
+    assert state.warm.device.type == "cpu" and state.warm.tolist() == [2.0] * 3
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            capacity.init_capacity_state(1.0)

@@ -570,3 +570,76 @@ def test_sweep_block_sizes_agree_on_the_card(card):
     for b in (8, 64):
         assert np.array_equal(sw.sweep(agents.paper_fleet(), specs, block_size=b, **kw).metrics,
                               base)
+
+
+def _moe_case(e, k, s, d=256, f=512, seed=0):
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", reduced=True), num_experts=e,
+                              experts_per_token=k, d_model=d, d_ff=f)
+    gen = torch.Generator().manual_seed(seed)
+    n = lambda *shape: torch.randn(shape, generator=gen) / shape[-2] ** 0.5
+    params = {"router": n(d, e), "w_gate": n(e, d, f), "w_up": n(e, d, f), "w_down": n(e, f, d)}
+    return cfg, params, torch.randn((2, s, d), generator=gen)
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.25])
+@pytest.mark.parametrize("ek", [(8, 2), (32, 8)], ids=["mixtral", "granite_moe"])
+def test_moe_on_the_card_matches_the_cpu(ek, factor, card):
+    """float32 MoE on the card (TF32 off) against the same call on the host:
+    the same expert ids, drops and outputs."""
+    from repro_torch.models import moe
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, params, x = _moe_case(*ek, s=300)
+    want, want_aux = moe.moe_ffn(x, params, cfg, capacity_factor=factor)
+    on_card = {n: t.cuda() for n, t in params.items()}
+    got, got_aux = moe.moe_ffn(x.cuda(), on_card, cfg, capacity_factor=factor)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-5, rtol=0)
+    assert torch.equal(moe._router(x.cuda(), on_card, cfg)[1].cpu(), moe._router(x, params, cfg)[1])
+    assert torch.equal((got.cpu() == 0).all(-1), (want == 0).all(-1))
+    zeros = torch.zeros((2, 16, cfg.d_model), device="cuda")
+    ids = moe._router(zeros, on_card, cfg)[1]
+    assert torch.equal(ids.cpu(), torch.arange(cfg.experts_per_token).expand(2, 16, -1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_kernel_over_a_full_rolling_cache(dtype, card):
+    """mixtral-8x7b's decode once its context has passed its window: 4 rows
+    over a rolled cache of 4096 entries, every entry valid."""
+    b, h, kv, d, s_max = 4, 32, 8, 128, 4096
+    q = _randn(card, (b, h, d), dtype)
+    kc, vc = (_randn(card, (b, s_max, kv, d), dtype) for _ in range(2))
+    before = da.launches
+    got = ops.decode_attention(q, kc, vc, s_max, window=s_max)
+    want = ref.decode_gqa(q, kc, vc, s_max, window=s_max)
+    assert da.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("prompt", [4100, 8192], ids=["rolled", "banded"])
+def test_rolling_window_model_through_the_kernels(prompt, card):
+    """Reduced mixtral with its published window of 4096, float32: a prompt
+    past the window (rolled into the cache; at 8192 the plain route is
+    banded), then 4 decode steps into the rolled cache, kernels against the
+    plain versions."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", reduced=True), sliding_window=4096)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=card, device="cuda")
+    before = (fa.launches, da.launches)
+    got, caches = api.prefill(params, {"tokens": tokens}, 2 * prompt)
+    want, ref_caches = api.prefill(params, {"tokens": tokens}, 2 * prompt, impl="ref")
+    assert caches["blocks"][0]["k"].shape[1] == 4096
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for i in range(4):
+        tok = got.argmax(-1)
+        got, caches = api.decode_step(params, caches, tok, prompt + i, 2 * prompt)
+        want, ref_caches = api.decode_step(params, ref_caches, tok, prompt + i, 2 * prompt,
+                                           impl="ref")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert (fa.launches, da.launches) == (before[0] + cfg.num_layers,
+                                          before[1] + 4 * cfg.num_layers)

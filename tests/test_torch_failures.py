@@ -109,3 +109,14 @@ def test_kill_switch(monkeypatch):
     assert failures.resolve_failures(spec) is spec
     monkeypatch.setenv(failures.FAILURE_ENV, "0")
     assert failures.resolve_failures(spec) is None
+
+
+def test_init_failure_state_defaults_to_the_card():
+    """Made on ``cuda`` unless the caller asks for the host; raises without a
+    CUDA device."""
+    state = failures.init_failure_state(4, device="cpu", batch_shape=(2,))
+    assert state.down.shape == (4,) and state.retry_q.shape == (2, failures.RETRY_CLASSES - 1, 4)
+    assert all(t.device.type == "cpu" and not t.any() for t in state)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            failures.init_failure_state(4)

@@ -17,7 +17,9 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 
-ARCHS = ("granite-8b", "qwen2-vl-2b", "minitron-4b", "mamba2-370m")
+ARCHS = ("granite-8b", "qwen2-vl-2b", "minitron-4b", "mamba2-370m", "mixtral-8x7b",
+         "granite-moe-1b-a400m")
+MOE_ARCHS = ("mixtral-8x7b", "granite-moe-1b-a400m")
 B, S, EXTRA = 2, 16, 4
 # mamba's prompt spans several chunks of its reduced chunk 16, with a ragged end.
 SEQ = {"mamba2-370m": 40}
@@ -46,14 +48,13 @@ def _to_torch(batch):
         torch.int64 if v.dtype == np.int32 else torch.float32) for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_and_decode_match_jax(arch):
+def _prefill_and_decode(arch, s, max_len, steps=EXTRA):
+    """Prefill ``s`` tokens and decode ``steps`` through both packages, the
+    logits compared at every step; returns the port's caches."""
     jax_api, jax_params, np_params = _jax_params(arch)
     cfg = get_config(arch, reduced=True)
     api = build_model(cfg)
     params = params_from_numpy(np_params, cfg, device="cpu")
-    s = SEQ.get(arch, S)
-    max_len = s + EXTRA
     batch = _batch(cfg, 0, s)
 
     want, jax_caches = jax_api.prefill(jax_params, {k: jnp.asarray(v) for k, v in batch.items()},
@@ -61,14 +62,40 @@ def test_prefill_and_decode_match_jax(arch):
     got, caches = api.prefill(params, _to_torch(batch), max_len)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, EXTRA)).astype(np.int32)
-    for i in range(EXTRA):
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, steps)).astype(np.int32)
+    for i in range(steps):
         want, jax_caches = jax_api.decode_step(jax_params, jax_caches, jnp.asarray(toks[:, i]),
                                                jnp.int32(s + i), max_len)
         got, caches = api.decode_step(params, caches, torch.from_numpy(toks[:, i]).long(),
                                       s + i, max_len)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    return caches
 
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    s = SEQ.get(arch, S)
+    _prefill_and_decode(arch, s, s + EXTRA)
+
+
+@pytest.mark.parametrize("s", [10, 20, 32], ids=["padded", "rolled", "banded"])
+def test_sliding_window_prompts_match_jax(s):
+    """Reduced mixtral's window is 16, so its cache holds 16 entries: a prompt
+    of 10 is padded into it, one of 20 rolled (token t at t % 16), and one of
+    32 also prefills banded (S a multiple of the window, at least two)."""
+    from repro_torch.kernels.attention import ref
+
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    assert cfg.sliding_window == 16
+    assert ref.uses_banded(s, s, causal=True, window=16, q_offset=0) == (s == 32)
+    _prefill_and_decode("mixtral-8x7b", s, 64)
+
+
+def test_decode_past_the_window_matches_jax():
+    """A 10-token prompt, then 12 decode steps: positions 16 to 21 overwrite
+    the oldest entries of the rolling cache."""
+    caches = _prefill_and_decode("mixtral-8x7b", 10, 64, steps=12)
+    assert caches["blocks"][0]["k"].shape[1] == 16
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_prefill(arch):
@@ -117,8 +144,7 @@ def test_init_scale_rule_and_device_contract():
             api.init(0)
 
 
-@pytest.mark.parametrize("arch", ("mixtral-8x7b", "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"))
+@pytest.mark.parametrize("arch", ("recurrentgemma-9b", "seamless-m4t-large-v2"))
 def test_unported_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         build_model(get_config(arch, reduced=True))
@@ -160,3 +186,25 @@ def test_params_follow_the_reference_execution_order():
     assert "rec" in params["blocks"][6] and "attn" in params["blocks"][5]
     with pytest.raises(ValueError, match="expected"):
         params_from_numpy({**tree, "tail": {}}, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_parameters_convert_exactly(arch):
+    """The stacked (L, E, D, F) expert leaves and the (L, D, E) router reach
+    each layer's dict unchanged (bfloat16 through float32)."""
+    jax_api = jax_build_model(jax_get_config(arch, reduced=True))
+    tree = jax.tree_util.tree_map(np.asarray, jax_api.init(jax.random.key(0)))  # bf16
+    cfg = get_config(arch, reduced=True)
+    params = params_from_numpy(tree, cfg, device="cpu")
+    assert transformer.layer_kinds(cfg) == ["attn_moe"] * cfg.num_layers
+    stacked = tree["blocks"]["b0_attn_moe"]["moe"]
+    assert stacked["w_gate"].shape == (cfg.num_layers, cfg.num_experts, cfg.d_model, cfg.d_ff)
+    assert stacked["router"].shape == (cfg.num_layers, cfg.d_model, cfg.num_experts)
+    decls = build_model(cfg).param_decls
+    for i, block in enumerate(params["blocks"]):
+        assert set(block) == set(decls["blocks"][i]) == {"ln1", "attn", "ln2", "moe"}
+        for name, leaf in block["moe"].items():
+            assert leaf.dtype == torch.bfloat16
+            assert tuple(leaf.shape) == decls["blocks"][i]["moe"][name].shape
+            np.testing.assert_array_equal(leaf.float().numpy(),
+                                          stacked[name][i].astype(np.float32))

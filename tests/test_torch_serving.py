@@ -1,8 +1,9 @@
 """The port's FleetEngine against the JAX package's: the same fleet, float32
 parameters and submissions must give the same greedy token streams,
-allocations and metrics.  Two fleets: dense agents (granite-8b, qwen2-vl-2b),
-and the reference's own two-agent engine fleet (tests/test_serving.py:
-minitron-4b and mamba2-370m).  The serverless layers (workflow routing, the
+allocations and metrics.  Three fleets: dense agents (granite-8b,
+qwen2-vl-2b), the reference's own two-agent engine fleet
+(tests/test_serving.py: minitron-4b and mamba2-370m), and the paper's
+Table I fleet (``launch/serve.py::DEFAULT_FLEET``, mixtral-8x7b included).  The serverless layers (workflow routing, the
 warm pool, failures) are held the same way, each on its own and all three
 together."""
 import math
@@ -37,19 +38,23 @@ AGENTS = (("nlp", "granite-8b", 100.0, 100.0, 0.2, 1),
 # tests/test_serving.py::_fleet_2 and ::_engine
 AGENTS_2 = (("fast", "minitron-4b", 100.0, 100.0, 0.2, 1),
             ("slow", "mamba2-370m", 500.0, 20.0, 0.3, 2))
+# launch/serve.py::DEFAULT_FLEET, as (name, arch, AgentSpec fields after the
+# name); reduced mixtral's window is 16, so its cache of 16 entries rolls.
+AGENTS_TABLE_I = tuple((name, arch, 1000.0, tput, min_gpu, pri)
+                       for name, arch, tput, min_gpu, pri, _ in serve.DEFAULT_FLEET)
 MAX_LEN, SLOTS, BUDGET = 48, 2, 32
 
 
 @pytest.fixture(scope="module")
 def jax_params():
     out = {}
-    for _, arch, *_ in AGENTS + AGENTS_2:
+    for arch in {a[1] for a in AGENTS + AGENTS_2 + AGENTS_TABLE_I}:
         api = jax_build_model(jax_get_config(arch, reduced=True))
         out[arch] = (api, api.init(jax.random.key(0), dtype=jnp.float32))
     return out
 
 
-def _engines(policy, jax_params, agents=AGENTS, features=None):
+def _engines(policy, jax_params, agents=AGENTS, features=None, budget=BUDGET):
     """The JAX engine and the port's over ``agents``; ``features`` maps each
     package's layer modules to the ``FleetEngine`` keyword arguments."""
     jax_rts, rts = {}, {}
@@ -66,11 +71,11 @@ def _engines(policy, jax_params, agents=AGENTS, features=None):
     jax_kw, kw = ({}, {}) if features is None else (
         features(jax_routing, jax_capacity, jax_failures),
         features(routing, capacity, failures))
-    return (JaxEngine(jax_fleet, jax_rts, policy=policy, budget_tokens=BUDGET, **jax_kw),
-            FleetEngine(fleet, rts, policy=policy, budget_tokens=BUDGET, device="cpu", **kw))
+    return (JaxEngine(jax_fleet, jax_rts, policy=policy, budget_tokens=budget, **jax_kw),
+            FleetEngine(fleet, rts, policy=policy, budget_tokens=budget, device="cpu", **kw))
 
 
-def _drive(engines, ticks=8, seed=0, agents=AGENTS, sources=None, rate=1.5):
+def _drive(engines, ticks=8, seed=0, agents=AGENTS, sources=None, rate=1.5, prompt=(3, 11)):
     rng = np.random.default_rng(seed)
     reqs = [[] for _ in engines]
     for t in range(ticks):
@@ -78,10 +83,10 @@ def _drive(engines, ticks=8, seed=0, agents=AGENTS, sources=None, rate=1.5):
             if sources is not None and name not in sources:
                 continue
             for _ in range(rng.poisson(rate)):
-                prompt = rng.integers(0, 512, rng.integers(3, 11))
+                ids = rng.integers(0, 512, rng.integers(*prompt))
                 new = int(rng.integers(2, 6))
                 for out, eng in zip(reqs, engines):
-                    out.append(eng.submit(name, prompt, new))
+                    out.append(eng.submit(name, ids, new))
         for eng in engines:
             eng.step()
     return reqs
@@ -222,11 +227,22 @@ def test_routed_prompt_is_wrapped_into_the_child_vocabulary(jax_params):
     qwen2-vl-2b coordinator over granite-8b specialists), the ids are taken
     modulo the child's table, where the reference would embed NaN rows
     (ROADMAP C)."""
+    _wrapped_into_child(jax_params, "qwen2-vl-2b")
+
+
+def test_routed_prompt_to_mixtral_is_wrapped(jax_params):
+    """The Table I coordinator (qwen2-vl-2b, 151,936 ids) routing to
+    mixtral-8x7b (32,000): the child's rolling-cache MoE model takes the
+    wrapped ids the same way."""
+    _wrapped_into_child(jax_params, "mixtral-8x7b")
+
+
+def _wrapped_into_child(jax_params, child_arch):
     import dataclasses
 
     _, eng = _engines("adaptive", jax_params, features=_workflow)
     vision = eng.runtimes[1]
-    api = build_model(dataclasses.replace(vision.api.cfg, vocab_size=100))
+    api = build_model(dataclasses.replace(get_config(child_arch, reduced=True), vocab_size=100))
     vision.api, vision.params = api, api.init(0, device="cpu")
     rows = api.cfg.padded_vocab
     assert vision.params["embed"]["embedding"].shape[0] == rows < 512
@@ -247,6 +263,21 @@ def test_exogenous_request_at_a_non_source_raises(jax_params):
             eng.submit("vision", np.arange(4), 2)
 
 
+@pytest.mark.parametrize("policy", ["adaptive", "round_robin"])
+def test_table_i_fleet_matches_jax_engine(policy, jax_params):
+    """The paper's Table I fleet, reduced: two qwen2-vl-2b agents, granite-8b
+    and mixtral-8x7b, whose prompts of up to 32 tokens are padded, rolled or
+    banded into its window of 16, and whose decodes pass it."""
+    jax_eng, eng = _engines(policy, jax_params, AGENTS_TABLE_I, budget=96)
+    jax_reqs, reqs = _drive((jax_eng, eng), ticks=6, agents=AGENTS_TABLE_I, rate=1.0,
+                            prompt=(6, 33))
+    reasoning = [r for r in eng.completed if r.agent == "specialist_reasoning"]
+    assert reasoning and eng.runtimes[3].caches["blocks"][0]["k"].shape[1] == 16
+    assert any(len(r.prompt) > 16 for r in reasoning)  # a rolled prefill
+    assert any(len(r.prompt) + len(r.tokens_out) > 16 for r in reasoning)
+    _assert_engines_agree(jax_eng, eng, jax_reqs, reqs)
+
+
 def test_build_engine_contract():
     assert serve.DEFAULT_FLEET[3][1] == "mixtral-8x7b"
     assert [r[:1] + r[2:] for r in serve.DENSE_FLEET] == [r[:1] + r[2:] for r in serve.DEFAULT_FLEET]
@@ -254,8 +285,14 @@ def test_build_engine_contract():
     eng = serve.build_engine("adaptive", fleet=serve.DENSE_FLEET, device="cpu")
     nlp, reasoning = eng.runtimes[1], eng.runtimes[3]
     assert nlp.params is reasoning.params  # one parameter set per architecture
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        serve.build_engine("adaptive", device="cpu")
+    eng = serve.build_engine("adaptive", device="cpu", num_layers={"mixtral-8x7b": 1})
+    coordinator, vision, reasoning = eng.runtimes[0], eng.runtimes[2], eng.runtimes[3]
+    assert coordinator.params is vision.params
+    assert reasoning.api.cfg.num_layers == len(reasoning.params["blocks"]) == 1
+    assert reasoning.api.cfg.num_experts == get_config("mixtral-8x7b", reduced=True).num_experts
+    assert serve.FULL_WIDTH_CUT == {"mixtral-8x7b": 16}
+    with pytest.raises(ValueError, match="cut"):
+        serve.build_engine("adaptive", device="cpu", num_layers={"mixtral-8x7b": 3})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.build_engine("adaptive", fleet=serve.DENSE_FLEET)

@@ -245,8 +245,8 @@ def test_batched_capacity_and_failure_steps_equal_their_rows():
     st = capacity.stack_capacities(caps).map(lambda x: x[:, None])
     rng = np.random.default_rng(0)
     shape = (len(caps), 3)
-    state = capacity.init_capacity_state(1.0, batch_shape=shape)
-    rows = [[capacity.init_capacity_state(1.0) for _ in range(3)] for _ in caps]
+    state = capacity.init_capacity_state(1.0, "cpu", batch_shape=shape)
+    rows = [[capacity.init_capacity_state(1.0, "cpu") for _ in range(3)] for _ in caps]
     for t in range(12):
         lam, ema, q = (torch.from_numpy(rng.uniform(0, hi, shape).astype(np.float32))
                        for hi in (300.0, 300.0, 120.0))
