@@ -13,7 +13,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    sm_90a, one process per source) and prints the build time, ptxas'
    registers, shared memory and spills per kernel, and the number of
    tensor-core instructions in the library's SASS (``cuobjdump``): each
-   bf16 flash kernel must have ``HGMMA`` (``wgmma``), and each bf16 SSD
+   bf16 flash kernel (D = 32, 64, 128 with one and two consumer warpgroups,
+   D = 256 with one) must have ``HGMMA`` (``wgmma``), and each bf16 SSD
    kernel both ``HGMMA`` (C·Bᵀ) and ``HMMA`` (``mma.sync``, the other
    products).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
@@ -28,20 +29,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    mixtral-8x7b's shapes (32 q / 8 kv heads, window 4096): flash at 512,
    6144 and 8192 tokens (at 8192 the plain route is banded, SDPA gets the
    band as an explicit mask, and the bound counts the band's work only),
-   decode over a full rolling cache of 4096 entries.
+   decode over a full rolling cache of 4096 entries.  Head dim 256 and 16
+   query heads per kv head at the sizes of ``tests/test_kernels.py``, both
+   dtypes; recurrentgemma-9b's local attention (16 q heads of 256 on 1 kv
+   head, window 2048) at 512, 2048 and 4096 tokens (banded plain route at
+   4096) and decode over a full rolling cache of 2048; seamless-m4t-large-
+   v2's encoder (4096 frames, no mask) and cross attention in decode (one
+   query row over 64 and 4096 frames), both dtypes.
 4. Full-width models, kernels vs plain versions, a prefill and decode steps
    each, compared step by step, at published widths with seeded random
    weights: granite-8b in bfloat16 and mamba2-370m in float32 (held) and in
    bfloat16 (printed beside the spread that a mere change of the plain
    scan's chunk gives; see ``phase_model``), 512-token prompts, 8 steps;
-   then the MoE family (``phase_moe_model``): mixtral-8x7b in float32 cut
+   then the MoE family (``phase_long_model``): mixtral-8x7b in float32 cut
    to 4 layers, an 8192-token prompt (banded on the plain route) and 8
    steps into the rolled cache, held at 1e-3 of max|logits|; granite-moe-
    1b-a400m whole in float32 (24 layers, 32 experts, top-8), 512 tokens and
    4 steps, held the same; mixtral-8x7b in bfloat16 at the fleet's 16
    layers, not held: the logits gap and the share of (token, layer) pairs
    routed to another set of experts, beside the same numbers for the plain
-   route's masked attention against its banded form.
+   route's masked attention against its banded form; recurrentgemma-9b
+   (the hybrid family) in float32 cut to 6 layers (two superblocks), a
+   4096-token prompt (two windows: banded on the plain route) and 8 steps
+   into the rolled cache, held at 1e-3, and whole in bfloat16 (38 layers),
+   held as granite-8b is, beside the masked-vs-banded yardstick;
+   seamless-m4t-large-v2 (the enc-dec family) whole in float32, 4096
+   encoder frames, a 512-token prompt and 8 steps, held at 1e-3.
 5. The slices, each driven for 8 ticks of Poisson traffic under the paper's
    allocator with every kernel's launch counter zeroed just before and read
    just after (``engine_tick`` lines: per-agent prefill and decode seconds,
@@ -49,8 +62,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fleet at full width, then the reference's two-agent engine fleet
    (``tests/test_serving.py``: minitron-4b and mamba2-370m) at full width,
    then the Table I fleet itself (``DEFAULT_FLEET``, mixtral-8x7b cut to 16
-   of its 32 layers, ``FULL_WIDTH_CUT``, printed), whose reduced twin on the
-   CPU must schedule exactly as the card.
+   of its 32 layers, ``FULL_WIDTH_CUT``, printed), then the hybrid fleet
+   (``hybrid_fleet``: the same rows with recurrentgemma-9b, all 38 layers,
+   as the reasoning specialist), each of whose reduced twins on the CPU must
+   schedule exactly as the card.  The dense fleet runs 4 ticks
+   (``DENSE_TICKS``, cut from 8 to keep the script's time; printed).
 6. The serverless layers: ``table2`` runs every registered policy through
    the simulator on the card (Table II's fleet and workload), its step loop
    under sync debug mode "error", checks the Table II anchors and each
@@ -66,7 +82,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    identical on a synthesized grid, the card's synthesized arrivals the
    CPU's bits, and the N = 1024 frontier synthesized on the card at the
    longest horizon that fits ``SWEEP_FRONTIER_S`` of loop (the reference's
-   is 10^4 steps; the cut is printed); ``serverless_engine`` serves the
+   is 10^4 steps; the cut is printed; ``SWEEP_FRONTIER_S`` was cut from 20
+   s to 5 s to keep the script's time); ``serverless_engine`` serves the
    full-width dense fleet with routing, a reactive warm pool and failures
    on (launch counters zeroed and read as in phase 5), and checks that the
    same engine at reduced widths on the CPU schedules exactly as the card.
@@ -76,9 +93,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernels per layer; then checks that a decode call with an int length is
    one device kernel, and that a bf16 SSD call is one device kernel that
    allocates only its outputs, with the SSD device time of a full-width
-   mamba2-370m prefill of 512 tokens; last, the device kernels per step and
-   the busy share of a Table II ``simulate`` under ``adaptive`` and of the
-   Table II grid's stream (``sweep_profile``).
+   mamba2-370m prefill of 512 tokens; then recurrentgemma-9b's decode step
+   the same way (its host clock read before the first profile), the device
+   kernels and time of one layer of each kind (``profile_layer_kinds``), and
+   the RG-LRU scan's share of the device time of a 2048-token prefill
+   (``rglru_scan``); last, the device kernels per step and the busy share of
+   a Table II ``simulate`` under ``adaptive`` and of the Table II grid's
+   stream (``sweep_profile``).  A ``time`` line after each group of phases
+   gives the script's time so far.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -164,6 +186,32 @@ SLICE_DECODE += [(4, 24, 8, 128, 1024, 300, 0)]
 MIXTRAL_WINDOW = 4096
 MIXTRAL_FLASH = [(1, s, s, 32, 8, 128, True, MIXTRAL_WINDOW) for s in (512, 6144, 8192)]
 MIXTRAL_DECODE = [(4, 32, 8, 128, MIXTRAL_WINDOW, MIXTRAL_WINDOW, MIXTRAL_WINDOW)]
+# Head dim 256 and 16 query heads per kv head at the sizes of
+# tests/test_kernels.py's cases, both dtypes.
+D256_FLASH_CASES = [
+    (2, 128, 128, 16, 1, 256, True, 0),
+    (1, 200, 200, 8, 8, 256, True, 0),
+    (2, 64, 256, 16, 1, 256, False, 0),
+    (1, 256, 256, 16, 1, 256, True, 64),
+]
+D256_DECODE_CASES = [
+    (2, 16, 1, 256, 300, 150, 0),
+    (1, 16, 1, 256, 512, 512, 0),
+    (3, 32, 2, 256, 256, 256, 128),
+    (2, 16, 1, 64, 1024, 700, 0),
+    (1, 16, 1, 128, 96, 1, 0),
+]
+# recurrentgemma-9b's local attention (16 q heads of 256 on 1 kv head,
+# window 2048): prompts inside the window, of one window and of two (the
+# plain route banded); decode over a full rolling cache of 2048 entries.
+RG_WINDOW = 2048
+RG_FLASH = [(1, s, s, 16, 1, 256, True, RG_WINDOW) for s in (512, 2048, 4096)]
+RG_DECODE = [(4, 16, 1, 256, RG_WINDOW, RG_WINDOW, RG_WINDOW)]
+# seamless-m4t-large-v2 (16 heads on 16, D 64): the encoder over 4096
+# frames, and cross attention in decode, one query row per batch row over
+# 64 frames (the engine's stub) and 4096.
+SEAMLESS_FLASH = [(1, 4096, 4096, 16, 16, 64, False, 0)]
+SEAMLESS_FLASH += [(4, 1, s, 16, 16, 64, False, 0) for s in (64, 4096)]
 # The shape each kernel's summary entry reports: granite-8b at the engine's
 # prompt and cache sizes; mamba2-370m's 512-token prefill.
 SUMMARY_FLASH = (1, 512, 512, 32, 8, 128, True, 0)
@@ -297,13 +345,14 @@ def phase_build() -> None:
                 if op in line:
                     counts.setdefault(kernel, {}).setdefault(op, 0)
                     counts[kernel][op] += 1
+    # D = 32, 64, 128 with one and two consumers; D = 256 with one.
     flash = {k: c.get("HGMMA", 0) for k, c in counts.items() if "flash_sm90_kernel" in k}
     ssd = {k: c for k, c in counts.items() if "ssd_sm90_kernel" in k}
     print(f"sass: {sum(c.get('HGMMA', 0) for c in counts.values())} HGMMA instructions, "
           f"{sum(flash.values())} in {len(flash)} bf16 flash kernels; bf16 SSD kernels "
           f"(HGMMA, HMMA): {sorted((c.get('HGMMA', 0), c.get('HMMA', 0)) for c in ssd.values())}",
           flush=True)
-    check(len(flash) == 6 and all(flash.values()),
+    check(len(flash) == 7 and all(flash.values()),
           "the bf16 flash kernels do not run on the tensor cores (no HGMMA in their SASS)")
     check(len(ssd) == 4 and all(c.get("HGMMA", 0) and c.get("HMMA", 0) for c in ssd.values()),
           f"the bf16 SSD kernels do not run on the tensor cores: {ssd}")
@@ -392,13 +441,13 @@ def check_decode(case, dtype, gpu, seed=0) -> dict:
     elem = q.element_size()
     bms, by = bound(gpu, (2 * b * n_valid * kv * d + 2 * b * h * d) * elem + 4 * b,
                     4 * b * h * d * n_valid, dtype)
+    ms = time_ms(lambda: da.decode_attention(q, kc, vc, clen, window=window))
     return {
         "kernel": "decode_attention", "case": list(case), "dtype": str(dtype).split(".")[-1],
-        "max_abs_err": err, "atol": ATOL[dtype],
-        "ms": time_ms(lambda: da.decode_attention(q, kc, vc, clen, window=window)),
+        "max_abs_err": err, "atol": ATOL[dtype], "ms": ms,
         "plain_ms": time_ms(lambda: ref.decode_gqa(q, kc, vc, clen, window=window)),
         "library_ms": time_ms(lambda: _sdpa(qt, kt, vt, mask)),
-        "bound_ms": bms, "bound_by": by,
+        "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
     }
 
 
@@ -542,7 +591,11 @@ def phase_kernels(gpu: str) -> dict:
             + [(check_decode, c, torch.bfloat16) for c in SLICE_DECODE]
             + [(check_ssd, c, torch.bfloat16) for c in SLICE_SSD]
             + [(check_flash, c, torch.bfloat16) for c in MIXTRAL_FLASH]
-            + [(check_decode, c, torch.bfloat16) for c in MIXTRAL_DECODE])
+            + [(check_decode, c, torch.bfloat16) for c in MIXTRAL_DECODE]
+            + [(check_flash, c, dt) for c in D256_FLASH_CASES for dt in ATOL]
+            + [(check_decode, c, dt) for c in D256_DECODE_CASES for dt in ATOL]
+            + [(check_flash, c, dt) for c in RG_FLASH + SEAMLESS_FLASH for dt in ATOL]
+            + [(check_decode, c, dt) for c in RG_DECODE for dt in ATOL])
     for fn, case, dtype in runs:
         row = fn(case, dtype, gpu)
         emit({"phase": "kernel", **row})
@@ -592,12 +645,14 @@ def _masked_plain():
         ref.uses_banded = rule
 
 
-def _run_path(api, impl, params, tokens, steps: int, max_len: int, feed=None):
-    """Prefill ``tokens``, then ``steps`` greedy decode steps (or the tokens
-    of ``feed``) through ``api`` with ``impl``.  Returns (float32 logits per
-    step, the tokens fed, the expert ids of every MoE router call)."""
+def _run_path(api, impl, params, tokens, steps: int, max_len: int, feed=None, frames=None):
+    """Prefill ``tokens`` (with the enc-dec family's encoder ``frames``), then
+    ``steps`` greedy decode steps (or the tokens of ``feed``) through ``api``
+    with ``impl``.  Returns (float32 logits per step, the tokens fed, the
+    expert ids of every MoE router call)."""
+    batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frontend_embeds": frames}
     with _recorded_routes() as routes:
-        logits, caches = api.prefill(params, {"tokens": tokens}, max_len, impl=impl)
+        logits, caches = api.prefill(params, batch, max_len, impl=impl)
         out, fed = [logits.float()], []
         for step in range(steps):
             tok = feed[step] if feed is not None else logits.argmax(-1)
@@ -698,22 +753,41 @@ def phase_model(arch: str, dtype=torch.bfloat16, held: bool = True, reduced: boo
     torch.cuda.empty_cache()
 
 
-def phase_moe_model(arch: str, dtype, num_layers: int | None = None, prompt_len: int = 512,
-                    steps: int = 8, held: bool = True, rtol: float = 5e-2,
-                    yardstick: bool = False) -> dict:
-    """``arch`` (an MoE model) at published widths, cut in depth to
-    ``num_layers`` if given, through the kernels and through the plain
-    versions: a prompt of ``prompt_len`` tokens, then ``steps`` decode steps
-    (for mixtral-8x7b's window of 4096 and a prompt of 8192, the plain
-    prefill is banded and every decode step writes into a rolled cache).
+def _attention_launches(cfg, steps: int) -> tuple[int, int]:
+    """The flash and decode launches of one prefill and ``steps`` decode
+    steps: one flash per attention layer of a decoder-only model; for the
+    enc-dec family one per encoder layer and two per decoder layer (self
+    and cross), and in decode one decode launch and one flash (cross) per
+    decoder layer."""
+    from repro_torch.models.transformer import layer_kinds
 
-    Held in float32.  Not held in bfloat16: with seeded random weights a
-    one-step bfloat16 difference between the routes flips the top-k choice
-    where two experts nearly tie, and the flip moves that token's output by
-    the whole difference of two experts.  The run prints the logits gap and
-    the share of (token, layer) pairs routed to another set of experts, and
-    with ``yardstick`` the same two numbers for a mere change of the plain
-    route's attention form (masked ``mha`` against banded)."""
+    if cfg.arch_type == "encdec":
+        return (cfg.encoder_layers + 2 * cfg.num_layers + steps * cfg.num_layers,
+                steps * cfg.num_layers)
+    n_attn = sum(kind.startswith("attn") for kind in layer_kinds(cfg))
+    return n_attn, steps * n_attn
+
+
+def phase_long_model(arch: str, dtype, num_layers: int | None = None, prompt_len: int = 512,
+                     steps: int = 8, held: bool = True, rtol: float = 5e-2,
+                     yardstick: bool = False, frames: int = 0) -> dict:
+    """``arch`` at published widths, cut in depth to ``num_layers`` if given,
+    through the kernels and through the plain versions: a prompt of
+    ``prompt_len`` tokens (after ``frames`` seeded random encoder frames for
+    the enc-dec family), then ``steps`` decode steps.  With a window (mixtral-
+    8x7b's 4096, recurrentgemma-9b's local 2048) and a prompt of two windows
+    the plain prefill is banded and every decode step writes into a rolled
+    cache.  One line per run, ``<arch_type>_model`` (``moe_model``,
+    ``hybrid_model``, ``encdec_model``), then the step-by-step comparison.
+
+    Held in float32.  MoE in bfloat16 is not held: with seeded random
+    weights a one-step bfloat16 difference between the routes flips the
+    top-k choice where two experts nearly tie, and the flip moves that
+    token's output by the whole difference of two experts.  The run prints
+    the logits gap and the share of (token, layer) pairs routed to another
+    set of experts, and with ``yardstick`` the same two numbers for a mere
+    change of the plain route's attention form (masked ``mha`` against
+    banded)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import decode_attention as da, flash_attention as fa
     from repro_torch.models.model import build_model
@@ -727,27 +801,32 @@ def phase_moe_model(arch: str, dtype, num_layers: int | None = None, prompt_len:
     params = api.init(0, dtype=dtype, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=DEVICE)
+    enc = (torch.randn((1, frames, cfg.d_model), generator=gen, device=DEVICE) * 0.02).to(dtype) \
+        if frames else None
     max_len = 2 * prompt_len  # a window's cache holds min(window, max_len) entries
+    decls = api.cache_decls(1, max_len)
+    kv_decls = decls["self"] if cfg.arch_type == "encdec" else decls["blocks"]
     label = "kernels_vs_plain"
     with torch.no_grad():
         before = (fa.launches, da.launches)
         torch.cuda.reset_peak_memory_stats()
-        kernels = _run_path(api, None, params, tokens, steps, max_len)
+        kernels = _run_path(api, None, params, tokens, steps, max_len, frames=enc)
         launches = (fa.launches - before[0], da.launches - before[1])
-        plain = _run_path(api, "ref", params, tokens, steps, max_len, feed=kernels[1])
+        plain = _run_path(api, "ref", params, tokens, steps, max_len, feed=kernels[1], frames=enc)
         check((fa.launches - before[0], da.launches - before[1]) == launches,
               f"{arch}: the plain route launched a kernel")
-        emit({"phase": "moe_model", "arch": arch, "layers": cfg.num_layers,
-              "dtype": str(dtype), "prompt": prompt_len, "steps": steps,
-              "cache_entries": api.cache_decls(1, max_len)["blocks"][0]["k"].shape[1],
+        emit({"phase": f"{cfg.arch_type}_model", "arch": arch, "layers": cfg.num_layers,
+              "dtype": str(dtype), "prompt": prompt_len, "frames": frames, "steps": steps,
+              "cache_entries": next(c["k"].shape[1] for c in kv_decls if "k" in c),
               "flash_launches": launches[0], "decode_launches": launches[1],
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
-        check(launches == (cfg.num_layers, steps * cfg.num_layers),
+        check(launches == _attention_launches(cfg, steps),
               f"{arch}: {launches} flash and decode launches for one prefill and {steps} steps")
         out = _compare_runs(cfg, dtype, kernels, plain, held, label, rtol)
         if yardstick:
             with _masked_plain():
-                masked = _run_path(api, "ref", params, tokens, steps, max_len, feed=kernels[1])
+                masked = _run_path(api, "ref", params, tokens, steps, max_len, feed=kernels[1],
+                                   frames=enc)
             _compare_runs(cfg, dtype, masked, plain, False, "plain_masked_vs_banded")
     check_tf32_off()
     del params, kernels, plain
@@ -860,8 +939,12 @@ def drive(eng, rates: dict, label: str, ticks: int = 8, prompt=(64, 513),
             "completed": {n: sum(r.agent == n for r in eng.completed) for n in eng.fleet.names}}
 
 
+DENSE_TICKS = 4  # cut from 8 to keep the script's time: the Table I and hybrid fleets run 8
+
+
 def phase_engine(reduced: bool = False, max_len: int = 1024, budget_tokens: int = 2048) -> dict:
-    """The dense Table I fleet (``build_engine``) at full width."""
+    """The dense Table I fleet (``build_engine``) at full width, for
+    ``DENSE_TICKS`` ticks."""
     from repro_torch.launch.serve import DEFAULT_FLEET, DENSE_FLEET, build_engine
 
     t0 = time.perf_counter()
@@ -869,7 +952,8 @@ def phase_engine(reduced: bool = False, max_len: int = 1024, budget_tokens: int 
                        budget_tokens=budget_tokens, max_len=max_len, batch_slots=4,
                        device=DEVICE)
     print(f"engine built in {time.perf_counter() - t0:.1f} s", flush=True)
-    out = drive(eng, {name: rate for name, *_, rate in DEFAULT_FLEET}, "dense")
+    print(f"dense: {DENSE_TICKS} of 8 ticks (cut to keep the script's time)", flush=True)
+    out = drive(eng, {name: rate for name, *_, rate in DEFAULT_FLEET}, "dense", ticks=DENSE_TICKS)
     for name in ("flash_attention", "decode_attention"):
         check(out["launches"][name] > 0, f"{name} was never launched on the dense fleet")
     return out["launches"]
@@ -920,40 +1004,65 @@ def same_schedule(eng, twin) -> dict:
     return same
 
 
-def phase_table_i_engine(ticks: int = 8, max_len: int = 1024, budget_tokens: int = 2048) -> dict:
-    """The paper's Table I fleet (``DEFAULT_FLEET``) at published widths, with
-    mixtral-8x7b cut in depth to fit the card (``FULL_WIDTH_CUT``), over
-    ``ticks`` ticks of Poisson arrivals at the Table I rates; then the same
-    engine at reduced widths on the CPU over the same arrival schedule must
-    schedule exactly as the card (the schedule depends on prompt lengths,
-    token counts, budgets, slots and ``max_len``, never on the logits)."""
-    from repro_torch.launch.serve import DEFAULT_FLEET, FULL_WIDTH_CUT, build_engine
+def hybrid_fleet() -> tuple:
+    """``DEFAULT_FLEET``'s four rows with recurrentgemma-9b as the reasoning
+    specialist in mixtral-8x7b's place (the reference names no such fleet)."""
+    from repro_torch.launch.serve import DEFAULT_FLEET
+
+    return tuple((name, "recurrentgemma-9b" if arch == "mixtral-8x7b" else arch, *rest)
+                 for name, arch, *rest in DEFAULT_FLEET)
+
+
+def phase_fleet_with_twin(fleet, label: str, num_layers=None, ticks: int = 8,
+                          max_len: int = 1024, budget_tokens: int = 2048) -> dict:
+    """``fleet`` at published widths, cut in depth by ``num_layers`` where
+    given, over ``ticks`` ticks of Poisson arrivals at its rates; then the
+    same engine at reduced widths on the CPU over the same arrival schedule
+    must schedule exactly as the card (the schedule depends on prompt
+    lengths, token counts, budgets, slots and ``max_len``, never on the
+    logits)."""
+    from repro_torch.launch.serve import build_engine
 
     t0 = time.perf_counter()
-    eng = build_engine("adaptive", reduced=False, fleet=DEFAULT_FLEET, num_layers=FULL_WIDTH_CUT,
+    eng = build_engine("adaptive", reduced=False, fleet=fleet, num_layers=num_layers,
                        budget_tokens=budget_tokens, max_len=max_len, batch_slots=4,
                        device=DEVICE)
-    print(f"table_i engine built in {time.perf_counter() - t0:.1f} s; depth cut "
-          f"{FULL_WIDTH_CUT} (layers of 32), widths uncut", flush=True)
-    schedule = poisson_schedule({name: rate for name, *_, rate in DEFAULT_FLEET}, ticks=ticks)
-    out = drive(eng, {}, "table_i", ticks=ticks, schedule=schedule)
+    print(f"{label} engine built in {time.perf_counter() - t0:.1f} s; "
+          f"{[arch for _, arch, *_ in fleet]}; depth cut {num_layers or 'none'}, widths uncut",
+          flush=True)
+    schedule = poisson_schedule({name: rate for name, *_, rate in fleet}, ticks=ticks)
+    out = drive(eng, {}, label, ticks=ticks, schedule=schedule)
     for name in ("flash_attention", "decode_attention"):
-        check(out["launches"][name] > 0, f"{name} was never launched on the Table I fleet")
+        check(out["launches"][name] > 0, f"{name} was never launched on the {label} fleet")
     for name, done in out["completed"].items():
-        check(done > 0, f"agent {name!r} completed no request on the Table I fleet")
+        check(done > 0, f"agent {name!r} completed no request on the {label} fleet")
 
     t0 = time.perf_counter()
-    twin = build_engine("adaptive", reduced=True, fleet=DEFAULT_FLEET,
-                        budget_tokens=budget_tokens, max_len=max_len, batch_slots=4,
-                        device="cpu")
+    twin = build_engine("adaptive", reduced=True, fleet=fleet, budget_tokens=budget_tokens,
+                        max_len=max_len, batch_slots=4, device="cpu")
     for tick in range(ticks):
         submit_tick(twin, schedule[tick])
         twin.step()
     same = same_schedule(eng, twin)
-    emit({"phase": "table_i_schedule", "same_as_cpu": same,
+    emit({"phase": f"{label}_schedule", "same_as_cpu": same,
           "cpu_twin_s": time.perf_counter() - t0, "metrics_cpu": _finite(twin.metrics())})
-    check(all(same.values()), f"table_i: the card and the CPU schedule differently: {same}")
+    check(all(same.values()), f"{label}: the card and the CPU schedule differently: {same}")
     return out["launches"]
+
+
+def phase_table_i_engine() -> dict:
+    """The paper's Table I fleet (``DEFAULT_FLEET``) at published widths, with
+    mixtral-8x7b cut in depth to fit the card (``FULL_WIDTH_CUT``)."""
+    from repro_torch.launch.serve import DEFAULT_FLEET, FULL_WIDTH_CUT
+
+    return phase_fleet_with_twin(DEFAULT_FLEET, "table_i", num_layers=FULL_WIDTH_CUT)
+
+
+def phase_hybrid_engine() -> dict:
+    """The hybrid fleet (``hybrid_fleet``): recurrentgemma-9b at all 38
+    layers beside the Table I fleet's qwen2-vl-2b and granite-8b, ~39 GB of
+    weights, no depth cut."""
+    return phase_fleet_with_twin(hybrid_fleet(), "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -1078,7 +1187,7 @@ SWEEP_LEAD_ROWS = {"chaos": ("chaos",), "fleets": ("fleet4_n256",),
 # the Table II grid's measured rate (the same 72 cells a step).
 SWEEP_FRONTIER_N = 1024
 SWEEP_FRONTIER_STEPS = 10_000
-SWEEP_FRONTIER_S = 20.0
+SWEEP_FRONTIER_S = 5.0    # cut from 20 s to keep the script's time
 SWEEP_FRONTIER_BLOCK = 64
 SWEEP_BLOCKS = (1, 8, 64)
 
@@ -1456,6 +1565,9 @@ def phase_serverless_engine(ticks: int = 8) -> dict:
 # ---------------------------------------------------------------------------
 
 PROFILED_MODELS = (("granite-8b", None), ("mixtral-8x7b", 16))
+# Timed alone first and profiled last: with granite and mixtral's 16 layers
+# (63.5 GB) it would not fit the card.
+PROFILED_HYBRID = ("recurrentgemma-9b", None)
 
 
 def _decode_steps(api, params, n, caches, tok, pos):
@@ -1530,6 +1642,91 @@ def profile_decode_step(state: dict, profiled: int = 5) -> None:
     check(device_ms > 0, f"the profiler saw no device time in a {cfg.name} decode step")
 
 
+def _device_events(prof) -> list:
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _profiled(fn, calls: int) -> tuple[float, float]:
+    """(device kernels, device ms) per call of ``fn`` in ``torch.profiler``,
+    after one call outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = _device_events(prof)
+    return len(kernels) / calls, sum(e.time_range.elapsed_us() for e in kernels) / calls / 1e3
+
+
+def profile_layer_kinds(state: dict, calls: int = 3) -> None:
+    """The device kernels and device time of one decode step through one
+    layer of each kind of a ``time_decode_steps`` model (the first layer of
+    the kind, its own cache, a random hidden row per batch row)."""
+    from repro_torch.models import transformer
+
+    cfg = state["cfg"]
+    kinds = transformer.layer_kinds(cfg)
+    spec = transformer.cache_spec(cfg, 1024)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn((state["batch"], 1, cfg.d_model), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    per_kind = {}
+    with torch.no_grad():
+        for kind in dict.fromkeys(kinds):
+            i = kinds.index(kind)
+            p, cache = state["params"]["blocks"][i], state["caches"]["blocks"][i]
+            n, ms = _profiled(lambda: transformer._block_decode(kind, x, cache, p, cfg,
+                                                                state["pos"], spec, None), calls)
+            per_kind[kind] = {"layers": kinds.count(kind), "device_kernels": n, "device_ms": ms}
+    emit({"phase": "profile_layer_kinds", "arch": cfg.name, "batch": state["batch"],
+          "per_kind": per_kind})
+
+
+def profile_rglru_scan(state: dict, prompt_len: int = 2048, calls: int = 3) -> None:
+    """The RG-LRU's share of the device time of a recurrentgemma-9b prefill
+    of ``prompt_len`` tokens (one row): the prefill in ``torch.profiler``,
+    then the first rglru layer's scan replayed on its own inputs once per
+    rglru layer (every rglru layer has the same shapes), both the whole
+    ``rglru_scan`` (the float32 gates and the scan) and the log-depth
+    ``linear_scan`` alone."""
+    from repro_torch.models import griffin, transformer
+
+    cfg, api, params = state["cfg"], state["api"], state["params"]
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=DEVICE)
+    captured, scan = [], griffin.rglru_scan
+
+    def recording(xb, p, h0=None):
+        if not captured:
+            captured.append((xb, p))
+        return scan(xb, p, h0)
+
+    griffin.rglru_scan = recording
+    try:
+        with torch.no_grad():
+            n_prefill, prefill_ms = _profiled(
+                lambda: api.prefill(params, {"tokens": tokens}, 1024), 1)
+    finally:
+        griffin.rglru_scan = scan
+    n_rec = transformer.layer_kinds(cfg).count("rglru_mlp")
+    xb, p = captured[0]
+    with torch.no_grad():
+        a, b = griffin._rglru_gates(xb, p)
+        n_scan, scan_ms = _profiled(lambda: griffin.rglru_scan(xb, p), calls)
+        n_linear, linear_ms = _profiled(lambda: griffin.linear_scan(a, b), calls)
+    emit({"phase": "rglru_scan", "arch": cfg.name, "prefill_tokens": prompt_len,
+          "prefill_device_ms": prefill_ms, "prefill_device_kernels": n_prefill,
+          "rglru_layers": n_rec, "rglru_scan_device_ms_per_layer": scan_ms,
+          "rglru_scan_kernels_per_layer": n_scan, "rglru_scan_share": n_rec * scan_ms / prefill_ms,
+          "linear_scan_device_ms_per_layer": linear_ms,
+          "linear_scan_kernels_per_layer": n_linear,
+          "linear_scan_share": n_rec * linear_ms / prefill_ms})
+    check(prefill_ms > 0 and linear_ms > 0, "the profiler saw no device time in the rglru scan")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1538,20 +1735,36 @@ def main() -> None:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
 
     t0 = time.perf_counter()
+
+    def lap(after: str) -> None:  # the script's time so far, per phase
+        emit({"phase": "time", "after": after, "s": time.perf_counter() - t0})
+
     smi = phase_device()
     gpu = smi.split(",")[0]
     phase_build()
     summary = phase_kernels(gpu)
+    lap("kernels")
     phase_model("granite-8b")
     phase_model("mamba2-370m", torch.float32)
     phase_model("mamba2-370m", torch.bfloat16, held=False)
     # mixtral-8x7b: an 8192-token prompt (banded on the plain route), then
     # decode steps into the rolled cache; float32 held at 4 layers, bf16 at
     # the fleet's 16 printed beside its yardstick.  granite-moe whole.
-    phase_moe_model("mixtral-8x7b", torch.float32, num_layers=4, prompt_len=8192, rtol=1e-3)
-    phase_moe_model("granite-moe-1b-a400m", torch.float32, prompt_len=512, steps=4, rtol=1e-3)
-    phase_moe_model("mixtral-8x7b", torch.bfloat16, num_layers=16, prompt_len=8192,
-                    held=False, yardstick=True)
+    phase_long_model("mixtral-8x7b", torch.float32, num_layers=4, prompt_len=8192, rtol=1e-3)
+    phase_long_model("granite-moe-1b-a400m", torch.float32, prompt_len=512, steps=4, rtol=1e-3)
+    phase_long_model("mixtral-8x7b", torch.bfloat16, num_layers=16, prompt_len=8192,
+                     held=False, yardstick=True)
+    # recurrentgemma-9b: two windows of prompt (banded on the plain route),
+    # then decode steps into the rolled cache; float32 held at 6 layers (two
+    # superblocks), bf16 whole (38 layers) held as granite-8b is, beside the
+    # masked-vs-banded yardstick.
+    # seamless-m4t-large-v2 whole in float32: 4096 encoder frames.
+    phase_long_model("recurrentgemma-9b", torch.float32, num_layers=6, prompt_len=4096,
+                     rtol=1e-3)
+    phase_long_model("recurrentgemma-9b", torch.bfloat16, prompt_len=4096, yardstick=True)
+    phase_long_model("seamless-m4t-large-v2", torch.float32, prompt_len=512, frames=4096,
+                     rtol=1e-3)
+    lap("models")
     dense = phase_engine()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1561,14 +1774,24 @@ def main() -> None:
     table_i = phase_table_i_engine()
     gc.collect()
     torch.cuda.empty_cache()
+    hybrid = phase_hybrid_engine()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("fleets")
     sim_walls = phase_table2()
+    lap("table2")
     sweep_walls = phase_sweep()
+    lap("sweep")
     serverless = phase_serverless_engine()
     gc.collect()
     torch.cuda.empty_cache()
+    lap("serverless_engine")
     # Last: the profiler's device tracing, once started, stays attached to
     # the process and would slow every later launch on the host; so every
     # profiled decode step's host clock is read first.
+    hybrid_host = time_decode_steps([PROFILED_HYBRID])[0]["host"]
+    gc.collect()
+    torch.cuda.empty_cache()
     granite, mixtral = time_decode_steps()
     profile_decode_step(granite)
     check_decode_launches()
@@ -1577,8 +1800,17 @@ def main() -> None:
     del granite, mixtral
     gc.collect()
     torch.cuda.empty_cache()
+    rgemma = time_decode_steps([PROFILED_HYBRID], steps=2)[0]
+    rgemma["host"] = hybrid_host  # the host clock read before any profile
+    profile_decode_step(rgemma)
+    profile_layer_kinds(rgemma)
+    profile_rglru_scan(rgemma)
+    del rgemma
+    gc.collect()
+    torch.cuda.empty_cache()
     profile_simulator(sim_walls["adaptive"])
     profile_sweep(sweep_walls["table2"])
+    lap("profiles")
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",
@@ -1593,9 +1825,12 @@ def main() -> None:
         row = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": two_agent[name],
+            # the newest fleet that runs the kernel: the hybrid fleet for
+            # attention, the two-agent fleet for the SSD scan
+            "launches": two_agent[name] if name == "ssd" else hybrid[name],
             "launches_by_fleet": {"dense": dense[name], "two_agent": two_agent[name],
-                                  "serverless": serverless[name], "table_i": table_i[name]},
+                                  "serverless": serverless[name], "table_i": table_i[name],
+                                  "hybrid": hybrid[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["case"], "dtype": row["dtype"],

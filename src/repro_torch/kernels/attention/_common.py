@@ -5,7 +5,7 @@ import torch
 
 from repro_torch.kernels._common import DTYPE_CODES
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def check_operands(name: str, tensors: dict[str, torch.Tensor]) -> None:

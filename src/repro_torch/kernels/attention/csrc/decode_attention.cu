@@ -23,8 +23,12 @@
 //     fourth 16-entry tile of the block's chunk and streams it through its
 //     own 2-stage `cp.async` ring, so the warps run without block barriers.
 //     Both products run on the tensor cores as `mma.sync` m16n8k16 (the
-//     G <= 8 query rows padded to 16): S = Q·Kᵀ with Q's fragments held in
-//     registers for the whole kernel and K's read by `ldmatrix`, the online
+//     G query rows padded to 16): S = Q·Kᵀ with K's fragments read by
+//     `ldmatrix` and Q's held in registers for the whole kernel when G <= 8
+//     and D <= 128 (rows 8..15 are zero), read by `ldmatrix` from shared
+//     memory otherwise (recurrentgemma-9b's 16 query heads on one kv head
+//     at D = 256, where registers do not hold both Q and the accumulator);
+//     the online
 //     softmax on the accumulator fragment (one max and rescale per row and
 //     tile), and O += P·V with P repacked from S's fragment in registers
 //     and V read by `ldmatrix.trans`.  K and V sit in shared memory with
@@ -33,12 +37,15 @@
 //   * float32 (`decode_fma_kernel`; the tensor cores would need TF32, which
 //     misses float32's tolerance): 32-entry tiles through a block-wide
 //     2-stage ring; lane j computes the whole dot product of entry j with
-//     the warp's query rows (read as shared-memory broadcasts), then one
+//     the warp's query rows (every fourth row of the group; read as
+//     shared-memory broadcasts), then one
 //     max, one exp per entry and one rescale per row and tile, then the
 //     value product with every thread owning a (query row, 16-byte column
 //     slice) of the accumulator.
 //   * The chunks of one (batch row, kv head) are one thread-block cluster
-//     (n_split <= 8, the portable cluster size) and are merged in the same
+//     (n_split <= 8, the portable cluster size, and at most what shared
+//     memory holds beside the ring: `repro_decode_max_split`, 4 at D = 256
+//     with 16 query rows) and are merged in the same
 //     launch through distributed shared memory: each block leaves its
 //     (m, l, acc) partial in its own shared memory, and after a cluster
 //     barrier the cluster's first block reads the others' and writes the
@@ -57,7 +64,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSplit = 8;  // chunks per (batch row, kv head): one cluster
-constexpr int kMaxGroup = 8;  // query rows per kv head
+constexpr int kMaxGroup = 16;  // query rows per kv head
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct DecodeArgs {
@@ -204,7 +211,9 @@ __global__ void __launch_bounds__(kThreads) decode_fma_kernel(DecodeArgs a) {
   constexpr int VEC = Vec<T>::N;
   constexpr int CG = D / VEC;  // 16-byte chunks of a cache row
   constexpr int SLOTS = (GMAX * CG + kThreads - 1) / kThreads;  // accumulator chunks per thread
-  static_assert(GMAX <= 2 * kWarps, "two query rows per warp");
+  // Query rows per warp: warp w owns rows w, w + 4, ...
+  constexpr int RW = GMAX > 2 * kWarps ? GMAX / kWarps : 2;
+  static_assert(GMAX <= 2 * kWarps || GMAX % kWarps == 0, "whole rows per warp");
   static_assert(kFmaTile == 32, "one entry per lane");
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -246,8 +255,13 @@ __global__ void __launch_bounds__(kThreads) decode_fma_kernel(DecodeArgs a) {
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)kvh * G * a.q_sh;
   for (int idx = tid; idx < G * D; idx += kThreads)
     sQ[idx / D][idx % D] = q[(idx / D) * a.q_sh + idx % D] * a.scale_log2;
-  // Warp w owns query rows w and w + 4: their running max and sum (base 2).
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  // The running max and sum (base 2) of the warp's query rows.
+  float m_run[RW], l_run[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    m_run[r] = kNegInf;
+    l_run[r] = 0.f;
+  }
   float acc[SLOTS][VEC];
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s)
@@ -264,14 +278,16 @@ __global__ void __launch_bounds__(kThreads) decode_fma_kernel(DecodeArgs a) {
 
     // Lane j scores entry j of the tile against the warp's query rows: a
     // whole dot product per thread, no shuffles.
-    float sc[2] = {0.f, 0.f};
+    float sc[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) sc[r] = 0.f;
     if (warp < G) {
 #pragma unroll
       for (int c = 0; c < CG; ++c) {
         float kf[VEC];
         Vec<T>::load(tK + swizzled<T, D>(lane, c), kf);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
+        for (int r = 0; r < RW; ++r) {
           const int g = warp + r * kWarps;
           if (g < G) {
 #pragma unroll
@@ -282,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) decode_fma_kernel(DecodeArgs a) {
     }
     // One max, one exp per entry and one rescale factor per row and tile.
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < RW; ++r) {
       const int g = warp + r * kWarps;
       if (g < G) {
         const float x = lane < rows ? sc[r] : -INFINITY;
@@ -329,7 +345,7 @@ __global__ void __launch_bounds__(kThreads) decode_fma_kernel(DecodeArgs a) {
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
+  for (int r = 0; r < RW; ++r) {
     const int g = warp + r * kWarps;
     if (g < G && lane == 0) {
       sM[g] = m_run[r];
@@ -364,18 +380,25 @@ __host__ __device__ constexpr int mma_smem_bytes() {
 // Fragments of m16n8k16 for lane l: A holds row l/4 (and l/4 + 8) at
 // columns 2(l % 4) + {0, 1} (and + 8); B holds column l/4 at rows
 // 2(l % 4) + {0, 1} (and + 8); C holds row l/4 (c0, c1) and l/4 + 8 (c2,
-// c3) at columns 2(l % 4) + {0, 1}.  The query rows are A's rows 0..G-1;
-// rows 8..15 are zero, so their registers are constant zeros.
-template <int D>
+// c3) at columns 2(l % 4) + {0, 1}.  The query rows are A's rows 0..G-1.
+// With GMAX = 8 rows 8..15 are zero; with GMAX = 16 a thread carries two
+// query rows, l/4 and l/4 + 8, through both products, the softmax and the
+// merge.
+template <int D, int GMAX>
 __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeArgs a) {
   using T = __nv_bfloat16;
-  constexpr int KS = D / 16;  // K-steps of Q·Kᵀ
-  constexpr int NT = D / 8;   // n-tiles of P·V
+  constexpr int KS = D / 16;    // K-steps of Q·Kᵀ
+  constexpr int NT = D / 8;     // n-tiles of P·V
+  constexpr int R = GMAX / 8;   // query rows per thread
+  constexpr bool QS = R == 2 || D > 128;  // Q's fragments from shared memory
+  static_assert(GMAX == 8 || GMAX == 16, "one or two 8-row halves of the A operand");
   static_assert(KS % 2 == 0, "ldmatrix.x4 reads two K-steps");
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  __shared__ float sAcc[kMaxGroup * D], sM[kMaxGroup], sL[kMaxGroup];
-  __shared__ float wM[kWarps][kMaxGroup], wL[kWarps][kMaxGroup];
+  __shared__ float sAcc[GMAX * D], sM[GMAX], sL[GMAX];
+  __shared__ float wM[kWarps][GMAX], wL[kWarps][GMAX];
+  // QS: Q's 16 rows (zero past G), swizzled as the cache tiles.
+  __shared__ __align__(16) T sQ[QS ? 16 * D : 8];
 
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -408,18 +431,36 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeArgs a) {
   };
   issue(0);
 
-  // Q's A fragments, held for the whole kernel.
   const int g_lane = lane / 4;
   const int c_lane = 2 * (lane % 4);
-  uint32_t qa[KS][2];
-  const T* q_row = static_cast<const T*>(a.q) + b * a.q_sb + (long long)(kvh * G + g_lane) * a.q_sh;
+  // !QS: Q's A fragments (rows 0..7), held for the whole kernel.
+  uint32_t qa[QS ? 1 : KS][2];
+  if constexpr (!QS) {
+    const T* q_row = static_cast<const T*>(a.q) + b * a.q_sb + (long long)(kvh * G + g_lane) * a.q_sh;
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    qa[ks][0] = g_lane < G ? *reinterpret_cast<const uint32_t*>(q_row + 16 * ks + c_lane) : 0u;
-    qa[ks][1] = g_lane < G ? *reinterpret_cast<const uint32_t*>(q_row + 16 * ks + 8 + c_lane) : 0u;
+    for (int ks = 0; ks < KS; ++ks) {
+      qa[ks][0] = g_lane < G ? *reinterpret_cast<const uint32_t*>(q_row + 16 * ks + c_lane) : 0u;
+      qa[ks][1] = g_lane < G ? *reinterpret_cast<const uint32_t*>(q_row + 16 * ks + 8 + c_lane) : 0u;
+    }
+  } else {
+    constexpr int CG = D / 8;  // 16-byte chunks of a row
+    const T* q0 = static_cast<const T*>(a.q) + b * a.q_sb + (long long)kvh * G * a.q_sh;
+    for (int idx = tid; idx < 16 * CG; idx += kThreads) {
+      const int r = idx / CG;
+      const int c = idx % CG;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < G) val = *reinterpret_cast<const uint4*>(q0 + r * a.q_sh + c * 8);
+      *reinterpret_cast<uint4*>(sQ + swizzled<T, D>(r, c)) = val;
+    }
+    __syncthreads();
   }
 
-  float m_run = kNegInf, l_run = 0.f;  // row g_lane, base 2; l is this thread's share
+  float m_run[R], l_run[R];  // rows g_lane + 8r, base 2; l is this thread's share
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m_run[r] = kNegInf;
+    l_run[r] = 0.f;
+  }
   float o[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -435,49 +476,72 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeArgs a) {
 
     // S = Q·Kᵀ for the tile's 16 entries (two n-tiles of 8).
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if constexpr (!QS) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int kp = 0; kp < KS / 2; ++kp) {
+          uint32_t kf[4];  // K-steps 2kp and 2kp + 1 of entries 8nt..8nt+7
+          ldmatrix_x4(kf, tK + swizzled<T, D>(8 * nt + lane % 8, 4 * kp + lane / 8));
+          const uint32_t a0[4] = {qa[2 * kp][0], 0u, qa[2 * kp][1], 0u};
+          const uint32_t a1[4] = {qa[2 * kp + 1][0], 0u, qa[2 * kp + 1][1], 0u};
+          mma_bf16(s[nt], a0, kf[0], kf[1]);
+          mma_bf16(s[nt], a1, kf[2], kf[3]);
+        }
+      }
+    } else {
 #pragma unroll
       for (int kp = 0; kp < KS / 2; ++kp) {
-        uint32_t kf[4];  // K-steps 2kp and 2kp + 1 of entries 8nt..8nt+7
-        ldmatrix_x4(kf, tK + swizzled<T, D>(8 * nt + lane % 8, 4 * kp + lane / 8));
-        const uint32_t a0[4] = {qa[2 * kp][0], 0u, qa[2 * kp][1], 0u};
-        const uint32_t a1[4] = {qa[2 * kp + 1][0], 0u, qa[2 * kp + 1][1], 0u};
-        mma_bf16(s[nt], a0, kf[0], kf[1]);
-        mma_bf16(s[nt], a1, kf[2], kf[3]);
+        uint32_t a0[4], a1[4];  // K-steps 2kp and 2kp + 1 of the 16 query rows
+        ldmatrix_x4(a0, sQ + swizzled<T, D>(lane % 16, 4 * kp + lane / 16));
+        ldmatrix_x4(a1, sQ + swizzled<T, D>(lane % 16, 4 * kp + 2 + lane / 16));
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, tK + swizzled<T, D>(8 * nt + lane % 8, 4 * kp + lane / 8));
+          mma_bf16(s[nt], a0, kf[0], kf[1]);
+          mma_bf16(s[nt], a1, kf[2], kf[3]);
+        }
       }
     }
 
-    // Online softmax on the fragment: row g_lane's 16 scores sit in the 4
-    // lanes of a quad.
-    float x[2][2];
-    float mx = -INFINITY;
+    // Online softmax on the fragment: row g_lane + 8r's 16 scores sit in
+    // the 4 lanes of a quad.
+    float x[R][2][2], p[R][2][2], alpha[R];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int r = 0; r < R; ++r) {
+      float mx = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        x[nt][e] = 8 * nt + c_lane + e < rows ? s[nt][e] * a.scale_log2 : -INFINITY;
-        mx = fmaxf(mx, x[nt][e]);
-      }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = exp2f(m_run - m_new);
-    float p[2][2];
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+        for (int e = 0; e < 2; ++e) {
+          x[r][nt][e] = 8 * nt + c_lane + e < rows ? s[nt][2 * r + e] * a.scale_log2 : -INFINITY;
+          mx = fmaxf(mx, x[r][nt][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      alpha[r] = exp2f(m_run[r] - m_new);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) p[nt][e] = exp2f(x[nt][e] - m_new);
-    l_run = l_run * alpha + (p[0][0] + p[0][1] + p[1][0] + p[1][1]);
-    m_run = m_new;
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      o[j][0] *= alpha;
-      o[j][1] *= alpha;
+        for (int e = 0; e < 2; ++e) p[r][nt][e] = exp2f(x[r][nt][e] - m_new);
+      l_run[r] = l_run[r] * alpha[r] + (p[r][0][0] + p[r][0][1] + p[r][1][0] + p[r][1][1]);
+      m_run[r] = m_new;
     }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        o[j][2 * r] *= alpha[r];
+        o[j][2 * r + 1] *= alpha[r];
+      }
 
-    // O += P·V, P in bf16 from S's fragment (rows 8..15 zero).
-    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u, pack_bf16(p[1][0], p[1][1]), 0u};
+    // O += P·V, P in bf16 from S's fragment (with GMAX = 8, rows 8..15 zero).
+    const uint32_t pa[4] = {pack_bf16(p[0][0][0], p[0][0][1]),
+                            R == 2 ? pack_bf16(p[R - 1][0][0], p[R - 1][0][1]) : 0u,
+                            pack_bf16(p[0][1][0], p[0][1][1]),
+                            R == 2 ? pack_bf16(p[R - 1][1][0], p[R - 1][1][1]) : 0u};
 #pragma unroll
     for (int dp = 0; dp < NT / 2; ++dp) {
       uint32_t vf[4];  // entries 0..7 and 8..15 of columns 16dp.. and 16dp + 8..
@@ -490,19 +554,26 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeArgs a) {
   cp_async_wait<0>();
 
   // Merge the four warps' (m, l, O) in shared memory (over the rings).
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  if (lane % 4 == 0 && g_lane < G) {
-    wM[warp][g_lane] = m_run;
-    wL[warp][g_lane] = l_run;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if (lane % 4 == 0 && g_lane + 8 * r < G) {
+      wM[warp][g_lane + 8 * r] = m_run[r];
+      wL[warp][g_lane + 8 * r] = l_run[r];
+    }
   }
   __syncthreads();  // every warp is done with its ring
   float* wO = reinterpret_cast<float*>(smem_raw);  // [kWarps][G][D]
-  if (g_lane < G) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      wO[(warp * G + g_lane) * D + 8 * j + c_lane] = o[j][0];
-      wO[(warp * G + g_lane) * D + 8 * j + c_lane + 1] = o[j][1];
+  for (int r = 0; r < R; ++r) {
+    const int g = g_lane + 8 * r;
+    if (g < G) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        wO[(warp * G + g) * D + 8 * j + c_lane] = o[j][2 * r];
+        wO[(warp * G + g) * D + 8 * j + c_lane + 1] = o[j][2 * r + 1];
+      }
     }
   }
   __syncthreads();
@@ -532,13 +603,60 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeArgs a) {
 // Launch
 // ---------------------------------------------------------------------------
 
+using DecodeKernel = void (*)(DecodeArgs);
+
+// The kernel instance that computes a (dtype, G) call at head dim D and the
+// bytes of its ring; no kernel for what none takes.
+struct Choice {
+  DecodeKernel kernel;
+  int ring;
+};
+template <int D>
+Choice choose(int dtype, int G) {
+  if (dtype == 0) {
+    constexpr int ring = fma_smem_bytes<D>();
+    if (G <= 2) return {decode_fma_kernel<D, 2>, ring};
+    if (G <= 4) return {decode_fma_kernel<D, 4>, ring};
+    if (G <= 8) return {decode_fma_kernel<D, 8>, ring};
+    if (G <= kMaxGroup) return {decode_fma_kernel<D, 16>, ring};
+  } else if (dtype == 1) {
+    constexpr int ring = mma_smem_bytes<D>();
+    if (G <= 8) return {decode_mma_kernel<D, 8>, ring};
+    if (G <= kMaxGroup) return {decode_mma_kernel<D, 16>, ring};
+  }
+  return {nullptr, 0};
+}
+Choice choose_d(int dtype, int D, int G) {
+  switch (D) {
+    case 32: return choose<32>(dtype, G);
+    case 64: return choose<64>(dtype, G);
+    case 128: return choose<128>(dtype, G);
+    case 256: return choose<256>(dtype, G);
+    default: return {nullptr, 0};
+  }
+}
+
+// The most chunks per (batch row, kv head) whose gather buffer fits in the
+// shared memory a block may opt into beside the kernel's static arrays and
+// its ring; 0 if not even one block fits.
+int max_split(const Choice& c, int D, int G) {
+  cudaFuncAttributes attr;
+  int device = 0, optin = 0;
+  if (cudaFuncGetAttributes(&attr, c.kernel) != cudaSuccess || cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+    return 0;
+  const long long room = static_cast<long long>(optin) - attr.sharedSizeBytes - c.ring;
+  if (room < 0) return 0;
+  int n = kMaxSplit;
+  while (n > 1 && static_cast<long long>(gather_floats(n, G, D)) * sizeof(float) > room) --n;
+  return n;
+}
+
 // The n_split blocks of one (batch row, kv head) as one cluster, with
 // `ring` bytes of dynamic shared memory plus the gather buffer.
-template <typename Kernel>
-cudaError_t launch_cluster(Kernel kernel, int ring, int D, const DecodeArgs& a,
-                           cudaStream_t stream) {
-  const int smem = ring + gather_floats(a.n_split, a.G, D) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch_cluster(const Choice& c, int D, const DecodeArgs& a, cudaStream_t stream) {
+  const int smem = c.ring + gather_floats(a.n_split, a.G, D) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.n_split, a.KV, a.B);
@@ -552,35 +670,28 @@ cudaError_t launch_cluster(Kernel kernel, int ring, int D, const DecodeArgs& a,
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  err = cudaLaunchKernelEx(&cfg, c.kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_fma(const DecodeArgs& a, cudaStream_t stream) {
-  constexpr int ring = fma_smem_bytes<D>();
-  if (a.G <= 2) return launch_cluster(decode_fma_kernel<D, 2>, ring, D, a, stream);
-  if (a.G <= 4) return launch_cluster(decode_fma_kernel<D, 4>, ring, D, a, stream);
-  if (a.G <= 8) return launch_cluster(decode_fma_kernel<D, 8>, ring, D, a, stream);
-  return cudaErrorInvalidValue;
-}
-
-template <int D>
-cudaError_t launch_d(const DecodeArgs& a, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch_fma<D>(a, stream);
-  if (dtype == 1 && a.G <= kMaxGroup)
-    return launch_cluster(decode_mma_kernel<D>, mma_smem_bytes<D>(), D, a, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace repro
 
+// The largest n_split that repro_decode_attention takes for a call of this
+// dtype (0 = float32, 1 = bfloat16), head dim D and group G = H / KV: at
+// most 8, fewer where the gather buffer of 8 chunks would not fit in shared
+// memory; 0 if the kernels take no such call.
+extern "C" int repro_decode_max_split(int dtype, int D, int G) {
+  const repro::Choice c = repro::choose_d(dtype, D, G);
+  return c.kernel == nullptr ? 0 : repro::max_split(c, D, G);
+}
+
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
 // cache_len: (B,) int32 on the device, or null, and then `len` holds for
 // every row.  Blocks cover chunks of `chunk` entries starting at `base`,
-// n_split <= 8 of them per (batch row, kv head); G = H / KV <= 8.  Strides
+// n_split of them per (batch row, kv head), at most
+// repro_decode_max_split(dtype, D, G); G = H / KV <= 16.  Strides
 // are in elements; the last dimension of q, the caches and out is
 // contiguous, rows 16-byte aligned.  Returns the CUDA error of the launch
 // (0 on success).
@@ -617,11 +728,7 @@ extern "C" int repro_decode_attention(
   a.o_sb = o_sb;
   a.o_sh = o_sh;
   if (n_split < 1 || n_split > repro::kMaxSplit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return static_cast<int>(repro::launch_d<32>(a, dtype, st));
-    case 64: return static_cast<int>(repro::launch_d<64>(a, dtype, st));
-    case 128: return static_cast<int>(repro::launch_d<128>(a, dtype, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const repro::Choice c = repro::choose_d(dtype, D, a.G);
+  if (c.kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(repro::launch_cluster(c, D, a, static_cast<cudaStream_t>(stream)));
 }

@@ -19,7 +19,8 @@
 //     repeated or transposed in device memory.
 //   * The Q tile is staged once in shared memory; K and V tiles of 32 rows
 //     are staged in turn with 16-byte loads.  Rows are padded by one float
-//     so that the column reads below hit distinct banks.
+//     so that the column reads below hit distinct banks.  At D = 256 that is
+//     140 KB, past the 48 KB default, which the launch opts into.
 //   * 128 threads as a 16 x 8 grid: each thread owns a 4 x 4 block of the
 //     score tile (register reuse: 8 shared loads per 16 FMAs) and 4 rows x
 //     D/8 columns of the output accumulator.  Row max and row sum are
@@ -227,6 +228,7 @@ cudaError_t launch_d(const FlashArgs& a, int D, cudaStream_t stream) {
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
+    case 256: return launch<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

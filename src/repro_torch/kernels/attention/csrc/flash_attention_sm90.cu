@@ -38,6 +38,13 @@
 //     causal diagonal, the window edge or past S_kv are masked in registers
 //     (a zero-filled key scores 0, not -inf).  O is divided by l in the
 //     epilogue and stored through the output's strides.
+//   * D = 256 (recurrentgemma-9b's local attention) keeps the same tiles:
+//     four 64-column TMA boxes per row, 161 KB of shared memory, so one
+//     block per SM; P·V is two N = 128 products over the two halves of V,
+//     and the 128-float O accumulator per thread gets the register budget
+//     of one block per SM.  Always one consumer: ptxas gives a 288-thread
+//     block at most 168 registers a thread, and the two-consumer block
+//     spilled.
 #include <cuda.h>
 #include <math.h>
 
@@ -160,12 +167,19 @@ template <>
 __device__ __forceinline__ void wgmma_pv<128>(float* o, const uint32_t* p, uint64_t dv) {
   wgmma_rs_n128(o, p, dv);
 }
+// Columns 128..255 are V's boxes 2 and 3, and registers 64..127 of the
+// 64 x 256 accumulator fragment.
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float* o, const uint32_t* p, uint64_t dv) {
+  wgmma_rs_n128(o, p, dv);
+  wgmma_rs_n128(o + 64, p, dv + ((2 * kBK * Tiles<256>::SWZ) >> 4));
+}
 
 // Accumulator fragment of a 64 x N wgmma: register j of thread (warp w,
 // lane l) of the warpgroup holds row 16w + l/4 + 8·((j/2) % 2) and column
 // 8·(j/4) + 2·(l % 4) + j % 2.
 template <int D, int NC>
-__global__ void __launch_bounds__(NC * 128 + 32, NC == 1 ? 2 : 1)
+__global__ void __launch_bounds__(NC * 128 + 32, NC == 1 && D < 256 ? 2 : 1)
     flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const Sm90Args a) {
   using T = Tiles<D>;
@@ -435,14 +449,19 @@ int launch(const Operands& x, Sm90Args a, cudaStream_t stream) {
 }
 
 // Two consumers per block share each K/V tile between 128 rows; they are
-// used when that still gives at least two blocks per SM.
+// used when that still gives at least two blocks per SM (never at D = 256).
 template <int D>
 int launch_nc(const Operands& x, const Sm90Args& a, cudaStream_t stream) {
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long wide = static_cast<long long>((x.S_q + 2 * kRows - 1) / (2 * kRows)) * x.H * x.B;
-  return wide >= 2LL * sms ? launch<D, 2>(x, a, stream) : launch<D, 1>(x, a, stream);
+  if constexpr (D == 256) {
+    return launch<D, 1>(x, a, stream);
+  } else {
+    int device = 0, sms = 132;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const long long wide =
+        static_cast<long long>((x.S_q + 2 * kRows - 1) / (2 * kRows)) * x.H * x.B;
+    return wide >= 2LL * sms ? launch<D, 2>(x, a, stream) : launch<D, 1>(x, a, stream);
+  }
 }
 
 }  // namespace
@@ -477,6 +496,7 @@ extern "C" int repro_flash_attention_sm90(
     case 32: return repro::launch_nc<32>(x, a, st);
     case 64: return repro::launch_nc<64>(x, a, st);
     case 128: return repro::launch_nc<128>(x, a, st);
+    case 256: return repro::launch_nc<256>(x, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

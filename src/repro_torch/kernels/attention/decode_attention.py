@@ -27,7 +27,7 @@ from repro_torch.kernels._common import DTYPE_CODES, raise_on_error, stream_hand
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention._common import check_operands
 
-MAX_GROUP = 8          # query heads per kv head the kernel keeps in registers
+MAX_GROUP = 16         # query heads per kv head: one m16n8k16 A operand
 # About one block per SM of an H100 (132 SMs): every cluster of chunks then
 # runs in the first wave (at two per SM, clusters of 8 measured slower).
 TARGET_BLOCKS = 128
@@ -36,6 +36,7 @@ MAX_SPLIT = 8          # chunks per (batch row, kv head): the portable cluster s
 
 launches = 0
 _fn = None
+_max_splits: dict[tuple, int] = {}
 
 
 def _kernel():
@@ -52,6 +53,24 @@ def _kernel():
     return _fn
 
 
+def max_split(dtype: torch.dtype, d: int, group: int) -> int:
+    """The most chunks per (batch row, kv head) the kernel takes for this
+    dtype, head dim and group: ``MAX_SPLIT``, or fewer where the chunks'
+    partials would not fit in shared memory beside the kernel's ring (the
+    C entry ``repro_decode_max_split`` reads the kernel's sizes)."""
+    key = (dtype, d, group)
+    if key not in _max_splits:
+        fn = _build.library().repro_decode_max_split
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3
+        n = fn(DTYPE_CODES[dtype], d, group)
+        if n < 1:
+            raise ValueError(f"decode_attention: no kernel takes {dtype}, head dim {d}, "
+                             f"group {group}")
+        _max_splits[key] = n
+    return _max_splits[key]
+
+
 def valid_range(cache_len: int, s_max: int, window: int = 0) -> tuple[int, int]:
     """[begin, end) of the entries ``ref.decode_gqa`` attends to for one
     host-int length: below ``min(cache_len, s_max)`` and, with a window, at
@@ -61,12 +80,12 @@ def valid_range(cache_len: int, s_max: int, window: int = 0) -> tuple[int, int]:
     return begin, max(begin, end)
 
 
-def split_plan(b: int, kv: int, length: int) -> tuple[int, int]:
-    """(chunk, n_split): cut ``length`` entries into at most ``MAX_SPLIT``
+def split_plan(b: int, kv: int, length: int, most: int = MAX_SPLIT) -> tuple[int, int]:
+    """(chunk, n_split): cut ``length`` entries into at most ``most``
     chunks that are multiples of 32 entries, with B·KV·n_split at most
     ``TARGET_BLOCKS`` where a split is possible; every chunk but the last
     is full and none is empty."""
-    want = min(MAX_SPLIT, max(1, TARGET_BLOCKS // (b * kv)))
+    want = min(most, max(1, TARGET_BLOCKS // (b * kv)))
     chunk = max(CHUNK_ALIGN, math.ceil(math.ceil(length / want) / CHUNK_ALIGN) * CHUNK_ALIGN)
     return chunk, max(1, math.ceil(length / chunk))
 
@@ -88,10 +107,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torc
         raise ValueError(f"decode_attention: group {h // kv} > {MAX_GROUP}")
     if window < 0:
         raise ValueError(f"decode_attention: window={window}")
+    with torch.cuda.device(q.device):
+        most = max_split(q.dtype, d, h // kv)
     if isinstance(cache_len, int):  # a scalar argument: no device tensor, no copy
         lens, scalar_len = None, cache_len
         base, end = valid_range(cache_len, s_max, window)
-        chunk, n_split = split_plan(b, kv, end - base)
+        chunk, n_split = split_plan(b, kv, end - base, most)
     else:
         lens = torch.as_tensor(cache_len, device=q.device).to(torch.int32)
         lens = lens.expand(b).contiguous() if lens.ndim == 0 else lens.contiguous()
@@ -99,7 +120,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torc
             raise ValueError(f"decode_attention: cache_len of shape {tuple(lens.shape)}, "
                              f"want ({b},)")
         scalar_len, base = 0, 0
-        chunk, n_split = split_plan(b, kv, s_max)
+        chunk, n_split = split_plan(b, kv, s_max, most)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _kernel()(

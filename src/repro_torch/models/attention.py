@@ -1,8 +1,9 @@
 """GQA attention block: projections + RoPE + kernel-dispatched core.
 
-Port of ``repro/models/attention.py`` for self-attention (train / prefill)
-and one-token decode against a fixed-size or rolling KV cache.  Cross
-attention (enc-dec) comes with ROADMAP A7.
+Port of ``repro/models/attention.py``: self-attention (train / prefill),
+the enc-dec model's cross attention against K/V projected once from the
+encoder's output, and one-token decode against a fixed-size or rolling KV
+cache.
 """
 from __future__ import annotations
 
@@ -54,6 +55,23 @@ def self_attention(x, p, cfg: ModelConfig, positions, *, causal: bool = True,
     b, s, _, _ = q.shape
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["w_o"]
     return out, (k, v)
+
+
+def cross_attention(x, enc_kv, p, cfg: ModelConfig, impl=None):
+    """Decoder-to-encoder attention, every query over every encoder frame;
+    ``enc_kv`` = (k, v) from ``cross_kv``, computed once per request."""
+    b, s, _ = x.shape
+    q = (x @ p["w_q"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k, v = enc_kv
+    out = attn_ops.flash_attention(q, k, v, causal=False, impl=impl)
+    return out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["w_o"]
+
+
+def cross_kv(enc_out, p, cfg: ModelConfig):
+    b, s, _ = enc_out.shape
+    k = (enc_out @ p["w_k"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["w_v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

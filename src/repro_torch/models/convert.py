@@ -7,7 +7,10 @@ and returns the port's tree.  The reference stacks its superblocks: each
 superblock, and the ``t{i}_{kind}`` tail blocks follow unstacked.  The port
 keeps one dict per layer, in the reference's execution order: superblock 0's
 sub-blocks in pattern order, then superblock 1, ..., then the tail
-(``transformer.layer_kinds``).  Types are kept: float32 stays float32, and
+(``transformer.layer_kinds``).  The enc-dec tree stacks its encoder and
+decoder blocks the same way (``enc_blocks``, ``dec_blocks``), with no tail;
+the port's ``enc_blocks`` and ``dec_blocks`` are lists of one dict per
+layer.  Types are kept: float32 stays float32, and
 bfloat16 (numpy's ``ml_dtypes`` bfloat16) goes through float32, which is
 exact.
 """
@@ -19,7 +22,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_leaves, tree_map
 
 
 def _tensor(x: np.ndarray, device) -> torch.Tensor:
@@ -34,6 +37,15 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Reference parameter tree (numpy leaves) -> the port's parameter tree,
     on ``device`` (``cuda`` unless the caller asks for the host)."""
     device = resolve_device(device)
+    leaf = lambda x: _tensor(x, device)  # noqa: E731
+    if cfg.arch_type == "encdec":
+        return {
+            "embed": tree_map(leaf, tree["embed"]),
+            "enc_blocks": _unstack(tree["enc_blocks"], cfg.encoder_layers, device),
+            "enc_norm": tree_map(leaf, tree["enc_norm"]),
+            "dec_blocks": _unstack(tree["dec_blocks"], cfg.num_layers, device),
+            "final_norm": tree_map(leaf, tree["final_norm"]),
+        }
     pat = transformer.block_pattern(cfg)
     n_super, rem = transformer.super_counts(cfg)
     stacked = [f"b{i}_{kind}" for i, kind in enumerate(pat)]
@@ -43,9 +55,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
                          f"{sorted(tree.get('tail', {}))}, expected {stacked} and {tail}")
     blocks = [tree_map(lambda x, i=i: _tensor(x[i], device), tree["blocks"][name])
               for i in range(n_super) for name in stacked]
-    blocks += [tree_map(lambda x: _tensor(x, device), tree["tail"][name]) for name in tail]
+    blocks += [tree_map(leaf, tree["tail"][name]) for name in tail]
     return {
-        "embed": tree_map(lambda x: _tensor(x, device), tree["embed"]),
-        "final_norm": tree_map(lambda x: _tensor(x, device), tree["final_norm"]),
+        "embed": tree_map(leaf, tree["embed"]),
+        "final_norm": tree_map(leaf, tree["final_norm"]),
         "blocks": blocks,
     }
+
+
+def _unstack(stacked: dict, n: int, device) -> list:
+    """A tree whose leaves carry a leading layers axis of ``n`` -> one tree
+    per layer."""
+    sizes = {x.shape[0] for x in tree_leaves(stacked)}
+    if sizes != {n}:
+        raise ValueError(f"stacked blocks with leading axes {sorted(sizes)}, expected {n}")
+    return [tree_map(lambda x, i=i: _tensor(x[i], device), stacked) for i in range(n)]

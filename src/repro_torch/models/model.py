@@ -1,9 +1,8 @@
-"""Model API (port of ``repro/models/model.py`` for the dense, MoE and ssm
-families).
+"""Model API (port of ``repro/models/model.py``).
 
 ``build_model(cfg)`` returns a ``ModelApi`` with the entry points the
-serving engine uses.  The dense, MoE and ssm families are ported; the others
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+serving engine uses: the enc-dec family through ``models/encdec.py``, every
+other family (dense, MoE, ssm, hybrid) through ``models/transformer.py``.
 """
 from __future__ import annotations
 
@@ -12,14 +11,12 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params
 
-_NOT_PORTED = {
-    "hybrid": "ROADMAP A7 (hybrid and enc-dec families)",
-    "encdec": "ROADMAP A7 (hybrid and enc-dec families)",
-}
+# The encoder length of the enc-dec cache (the reference's _ENC_LEN_DECODE).
+ENC_LEN_DECODE = 4_096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,10 +33,15 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.arch_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type!r} family is not ported yet; "
-            f"see {_NOT_PORTED[cfg.arch_type]}"
+    if cfg.arch_type == "encdec":
+        return ModelApi(
+            cfg=cfg,
+            param_decls=encdec.model_decls(cfg),
+            prefill=lambda p, b, max_len, impl=None: encdec.prefill(p, b, cfg, max_len, impl),
+            decode_step=lambda p, c, t, pos, max_len, impl=None: encdec.decode_step(
+                p, c, t, pos, cfg, max_len, impl),
+            cache_decls=lambda batch, max_len: encdec.cache_decls(cfg, batch, max_len,
+                                                                  ENC_LEN_DECODE),
         )
     return ModelApi(
         cfg=cfg,

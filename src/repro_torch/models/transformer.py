@@ -1,6 +1,6 @@
 """Decoder-only language model over the reference's block patterns (port of
-``repro/models/transformer.py``; the ``attn_mlp``, ``attn_moe`` and ``ssm``
-blocks so far).
+``repro/models/transformer.py``): ``attn_mlp``, ``attn_moe``, ``ssm`` and
+the hybrid's ``rglru_mlp`` blocks.
 
 Where the reference groups the layers into superblocks stacked on a leading
 axis and scans over them, the port keeps one parameter dict per layer in a
@@ -24,13 +24,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import griffin, layers, moe, ssm
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
 
-_NOT_PORTED = {
-    "rglru_mlp": "ROADMAP A7 (hybrid and enc-dec families)",
-}
 DECODE_CAPACITY_FACTOR = 2.0
 
 
@@ -64,13 +61,7 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     return list(pat) * n_super + list(pat[:rem])
 
 
-def _check_ported(kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet; see {_NOT_PORTED[kind]}")
-
-
 def _block_decls(kind: str, cfg: ModelConfig) -> dict:
-    _check_ported(kind)
     if kind == "attn_mlp":
         return {
             "ln1": layers.rmsnorm_decls(cfg.d_model),
@@ -87,6 +78,13 @@ def _block_decls(kind: str, cfg: ModelConfig) -> dict:
         }
     if kind == "ssm":
         return {"ln1": layers.rmsnorm_decls(cfg.d_model), "ssm": ssm.ssm_decls(cfg)}
+    if kind == "rglru_mlp":
+        return {
+            "ln1": layers.rmsnorm_decls(cfg.d_model),
+            "rec": griffin.rglru_decls(cfg),
+            "ln2": layers.rmsnorm_decls(cfg.d_model),
+            "mlp": layers.ffn_decls(cfg.d_model, cfg.d_ff, cfg.ffn_type),
+        }
     raise ValueError(kind)
 
 
@@ -98,13 +96,22 @@ def model_decls(cfg: ModelConfig) -> dict:
     }
 
 
+def _window_for(cfg: ModelConfig) -> int:
+    """The attention blocks' window: a hybrid's local attention attends over
+    ``attention_window``, every other family over ``sliding_window``."""
+    if cfg.arch_type == "hybrid":
+        return cfg.attention_window
+    return cfg.sliding_window
+
+
 def _block_fwd(kind: str, x, p, cfg: ModelConfig, positions, impl):
     """Full-sequence forward of one block.  Returns (x, cache_seed): (k, v)
-    for the attention blocks, (conv_tail, final_state) for ``ssm``."""
+    for the attention blocks, (conv_tail, final_state) for ``ssm`` and
+    ``rglru_mlp``."""
     if kind in ("attn_mlp", "attn_moe"):
         h, kv = attn.self_attention(
             layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg, positions,
-            causal=True, window=cfg.sliding_window, impl=impl,
+            causal=True, window=_window_for(cfg), impl=impl,
         )
         x = x + h
         y = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -116,6 +123,12 @@ def _block_fwd(kind: str, x, p, cfg: ModelConfig, positions, impl):
         h, state = ssm.ssm_block(layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["ssm"], cfg,
                                  impl=impl)
         return x + h, state
+    if kind == "rglru_mlp":
+        h, state = griffin.recurrent_block(layers.rms_norm(x, p["ln1"], cfg.norm_eps),
+                                           p["rec"], cfg)
+        x = x + h
+        return x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
+                              cfg.ffn_type), state
     raise ValueError(kind)
 
 
@@ -151,11 +164,12 @@ def cache_spec(cfg: ModelConfig, max_len: int) -> KVCacheSpec:
 
 
 def _block_cache_decls(kind: str, cfg: ModelConfig, batch: int, spec: KVCacheSpec):
-    _check_ported(kind)
     if kind in ("attn_mlp", "attn_moe"):
         return attn.kv_cache_decls(cfg, batch, spec)
     if kind == "ssm":
         return ssm.ssm_cache_decls(cfg, batch)
+    if kind == "rglru_mlp":
+        return griffin.rglru_cache_decls(cfg, batch)
     raise ValueError(kind)
 
 
@@ -166,7 +180,7 @@ def cache_decls(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 def _seed_to_cache(kind: str, seed, spec: KVCacheSpec, s: int) -> dict:
     """Convert a full-sequence cache seed into the decode cache layout."""
-    if kind == "ssm":
+    if kind in ("ssm", "rglru_mlp"):
         conv_tail, h = seed
         return {"conv": conv_tail, "h": h.float()}
 
@@ -208,7 +222,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl=None):
 def _block_decode(kind: str, x, cache, p, cfg: ModelConfig, pos: int, spec: KVCacheSpec,
                   impl):
     """One token through one block.  Returns (x, cache): an attention cache is
-    updated in place, an ssm cache is replaced."""
+    updated in place, an ssm or rglru cache is replaced."""
     if kind in ("attn_mlp", "attn_moe"):
         h, cache = attn.decode_self_attention(
             layers.rms_norm(x, p["ln1"], cfg.norm_eps), cache, p["attn"], cfg, pos, spec,
@@ -224,6 +238,12 @@ def _block_decode(kind: str, x, cache, p, cfg: ModelConfig, pos: int, spec: KVCa
         h, cache = ssm.ssm_decode_step(layers.rms_norm(x, p["ln1"], cfg.norm_eps), cache,
                                        p["ssm"], cfg)
         return x + h, cache
+    if kind == "rglru_mlp":
+        h, cache = griffin.recurrent_decode_step(layers.rms_norm(x, p["ln1"], cfg.norm_eps),
+                                                 cache, p["rec"], cfg)
+        x = x + h
+        return x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
+                              cfg.ffn_type), cache
     raise ValueError(kind)
 
 
@@ -231,7 +251,7 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig, max_len: int,
     """token (B,) int; pos: one position for every row -> (logits (B,V), caches).
 
     Attention caches are updated in place; the returned tree holds them and
-    the new ssm caches.
+    the new ssm and rglru caches.
     """
     spec = cache_spec(cfg, max_len)
     x = layers.embed(token[:, None], params["embed"])

@@ -343,6 +343,12 @@ class FleetEngine:
             fe = min(cfg.frontend_tokens, s)
             batch["frontend_embeds"] = torch.zeros(
                 (1, fe, cfg.d_model), dtype=torch.bfloat16, device=dev)
+        if cfg.arch_type == "encdec":
+            # The audio stub: 64 zero frames, as the reference engine feeds.
+            # Its cache holds the cross K/V of 4096 frames, so the scatter
+            # below raises, in the reference and here (ROADMAP C).
+            batch["frontend_embeds"] = torch.zeros(
+                (1, 64, cfg.d_model), dtype=torch.bfloat16, device=dev)
         logits, caches1 = rt.api.prefill(rt.params, batch, rt.max_len)
         req.tokens_out.append(int(torch.argmax(logits[0])))
         if rt.caches is None:
@@ -483,15 +489,19 @@ class FleetEngine:
 def _scatter_slot(caches, caches1, slot: int):
     """Write a batch-1 cache tree into slot ``slot`` of the batched cache, in place.
 
-    Batch is axis 0 of every leaf (attention k/v, ssm conv window and
-    state); ``copy_`` casts to the batched leaf's dtype, as the reference's
-    ``.astype(full.dtype)`` does.  Shapes that differ past axis 0 raise
-    ``ValueError``, as in the reference: among them the conv tail of an ssm
-    prompt shorter than ``ssm_conv_width - 1`` tokens.
+    Batch is axis 0 of every leaf (attention k/v, ssm and rglru conv window
+    and state, enc-dec cross K/V); ``copy_`` casts to the batched leaf's
+    dtype, as the reference's ``.astype(full.dtype)`` does, and broadcasts
+    as its ``.at[slot].set`` does: the conv tail of a one-token ssm or
+    rglru prompt (one row) fills every row of the cache's conv window.
+    Shapes that do not broadcast raise ``ValueError``, as in the reference:
+    the conv tail of a two-token prompt (two rows for three), and an enc-dec
+    prompt's cross K/V of 64 frames against the cache's 4096 (ROADMAP C).
     """
 
     def upd(full, one):
-        if full.ndim != one.ndim or one.shape[0] != 1 or full.shape[1:] != one.shape[1:]:
+        if (full.ndim != one.ndim or one.shape[0] != 1
+                or any(o not in (1, f) for o, f in zip(one.shape[1:], full.shape[1:]))):
             raise ValueError((tuple(full.shape), tuple(one.shape)))
         full[slot].copy_(one[0])
 

@@ -201,9 +201,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                                atol=2e-2, rtol=0)
     with pytest.raises(ValueError, match="row-contiguous"):
         fa.flash_attention(q[..., ::2], k[..., :64], k[..., :64])
-    qd = _randn(card, (2, 32, 128), torch.bfloat16)
+    qd = _randn(card, (2, 64, 128), torch.bfloat16)  # 32 query heads per kv head
     cache = _randn(card, (2, 64, 2, 128), torch.bfloat16)
     with pytest.raises(ValueError, match="group"):
+        da.decode_attention(qd, cache, cache, 10)
+    qd = _randn(card, (2, 4, 96), torch.bfloat16)
+    cache = _randn(card, (2, 64, 2, 96), torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention(qd, cache, cache, 10)
+    qd, cache = _randn(card, (2, 4, 64), torch.float16), _randn(card, (2, 64, 2, 64), torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
         da.decode_attention(qd, cache, cache, 10)
 
 
@@ -643,3 +650,134 @@ def test_rolling_window_model_through_the_kernels(prompt, card):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     assert (fa.launches, da.launches) == (before[0] + cfg.num_layers,
                                           before[1] + 4 * cfg.num_layers)
+
+
+# ---------------------------------------------------------------------------
+# Head dim 256 and 16 query heads per kv head (recurrentgemma-9b's local
+# attention: 16 on 1, window 2048), and flash without a causal mask at one
+# query row (the enc-dec family's cross attention in decode).
+# ---------------------------------------------------------------------------
+
+D256_FLASH_CASES = [
+    # (b, s_q, s_kv, h, kv, d, causal, window)
+    (1, 200, 200, 16, 1, 256, True, 0),        # ragged, 16 heads on 1
+    (2, 130, 130, 4, 2, 256, True, 64),        # a window
+    (1, 96, 300, 8, 8, 256, False, 0),         # no mask, S_q < S_kv
+    (1, 1024, 1024, 16, 1, 256, True, 512),    # one consumer per block
+    (2, 2048, 2048, 16, 1, 256, True, 2048),   # a grid that takes two consumers at D <= 128
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", D256_FLASH_CASES)
+def test_flash_kernel_at_head_dim_256(case, dtype, card):
+    _flash_check(case, dtype, card)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("s_kv", [64, 1000, 4096])
+def test_flash_at_one_query_row_without_a_mask(s_kv, d, dtype, card):
+    """Cross attention in decode: one query row per batch row over every
+    encoder frame (seamless-m4t-large-v2: 16 heads on 16, D = 64)."""
+    _flash_check((4, 1, s_kv, 16, 16, d, False, 0), dtype, card)
+
+
+D256_DECODE_CASES = [
+    # (b, h, kv, d, s_max, cache_len, window)
+    (4, 16, 1, 256, 2048, 2048, 2048),   # recurrentgemma-9b over a full rolling cache
+    (4, 16, 1, 256, 2048, 300, 2048),
+    (2, 16, 1, 256, 1024, 1, 0),         # len 1
+    (2, 32, 2, 256, 512, 400, 100),      # 16 on 1 for two kv heads, a window
+    (3, 12, 1, 128, 700, 650, 0),        # 12 rows: 8..11 real, 12..15 padding
+    (2, 16, 1, 64, 256, 256, 0),
+    (1, 8, 1, 256, 512, 333, 0),         # 8 rows at D = 256
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", D256_DECODE_CASES)
+def test_decode_kernel_at_head_dim_256_and_16_rows(case, dtype, card):
+    b, h, kv, d, s_max, clen, window = case
+    q = _randn(card, (b, h, d), dtype)
+    kc, vc = (_randn(card, (b, s_max, kv, d), dtype) for _ in range(2))
+    want = ref.decode_gqa(q, kc, vc, clen, window=window)
+    before = da.launches
+    got = da.decode_attention(q, kc, vc, clen, window=window)
+    assert da.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype], rtol=0)
+    lens = torch.tensor([clen - i % 2 if clen > 1 else 1 for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    torch.testing.assert_close(da.decode_attention(q, kc, vc, lens, window=window).float(),
+                               ref.decode_gqa(q, kc, vc, lens, window=window).float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+def test_decode_split_fits_shared_memory(card):
+    """At D = 256 with 16 rows, eight chunks' partials would not fit in
+    shared memory beside the ring: the plan takes fewer, and every split the
+    plan may pick launches."""
+    assert da.max_split(torch.bfloat16, 128, 8) == da.MAX_SPLIT
+    for dtype in DTYPES:
+        most = da.max_split(dtype, 256, 16)
+        assert 1 <= most < da.MAX_SPLIT
+        assert da.split_plan(4, 1, 2048, most)[1] == most
+    q = _randn(card, (1, 16, 256), torch.bfloat16)
+    kc, vc = (_randn(card, (1, 4096, 1, 256), torch.bfloat16) for _ in range(2))
+    torch.testing.assert_close(da.decode_attention(q, kc, vc, 4096).float(),
+                               ref.decode_gqa(q, kc, vc, 4096).float(), atol=2e-2, rtol=0)
+
+
+def _launches():
+    return fa.launches, da.launches
+
+
+@pytest.mark.parametrize("prompt", [300, 2100, 4096], ids=["inside", "rolled", "banded"])
+def test_hybrid_model_through_the_kernels(prompt, card):
+    """Reduced recurrentgemma-9b with its published head layout (16 heads of
+    256 on one kv head) and window of 2048, float32: a prompt inside the
+    window, past it (rolled into the cache) and of two windows (banded on
+    the plain route), then 4 decode steps, kernels against plain versions."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", reduced=True), num_heads=16,
+                              num_kv_heads=1, head_dim=256, attention_window=2048)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=card, device="cuda")
+    n_attn = cfg.block_pattern.count("attn")
+    before = _launches()
+    got, caches = api.prefill(params, {"tokens": tokens}, 2 * prompt)
+    want, ref_caches = api.prefill(params, {"tokens": tokens}, 2 * prompt, impl="ref")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for i in range(4):
+        tok = got.argmax(-1)
+        got, caches = api.decode_step(params, caches, tok, prompt + i, 2 * prompt)
+        want, ref_caches = api.decode_step(params, ref_caches, tok, prompt + i, 2 * prompt,
+                                           impl="ref")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert _launches() == (before[0] + n_attn, before[1] + 4 * n_attn)
+
+
+def test_encdec_model_through_the_kernels(card):
+    """Reduced seamless-m4t-large-v2, float32: 600 encoder frames, a
+    50-token prompt and 4 steps; the encoder and the cross attention run
+    flash without a causal mask (at one query row in decode)."""
+    cfg = get_config("seamless-m4t-large-v2", reduced=True)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 50), generator=card, device="cuda")
+    frames = torch.randn((2, 600, cfg.d_model), generator=card, device="cuda") * 0.02
+    batch = {"tokens": tokens, "frontend_embeds": frames}
+    before = _launches()
+    got, caches = api.prefill(params, batch, 64)
+    assert _launches() == (before[0] + cfg.encoder_layers + 2 * cfg.num_layers, before[1])
+    want, ref_caches = api.prefill(params, batch, 64, impl="ref")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for i in range(4):
+        tok = got.argmax(-1)
+        got, caches = api.decode_step(params, caches, tok, 50 + i, 64)
+        want, ref_caches = api.decode_step(params, ref_caches, tok, 50 + i, 64, impl="ref")
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert _launches() == (before[0] + cfg.encoder_layers + 6 * cfg.num_layers,
+                           before[1] + 4 * cfg.num_layers)

@@ -18,16 +18,17 @@ from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 
 ARCHS = ("granite-8b", "qwen2-vl-2b", "minitron-4b", "mamba2-370m", "mixtral-8x7b",
-         "granite-moe-1b-a400m")
+         "granite-moe-1b-a400m", "recurrentgemma-9b", "seamless-m4t-large-v2")
 MOE_ARCHS = ("mixtral-8x7b", "granite-moe-1b-a400m")
 B, S, EXTRA = 2, 16, 4
 # mamba's prompt spans several chunks of its reduced chunk 16, with a ragged end.
 SEQ = {"mamba2-370m": 40}
 ATOL = 1e-4   # float32 on both sides; sums taken in another order
+ENC_FRAMES = 24  # the enc-dec family's frontend frames in these tests
 
 
-def _jax_params(arch):
-    cfg = jax_get_config(arch, reduced=True)
+def _jax_params(arch, **overrides):
+    cfg = dataclasses.replace(jax_get_config(arch, reduced=True), **overrides)
     api = jax_build_model(cfg)
     params = api.init(jax.random.key(0), dtype=jnp.float32)
     return api, params, jax.tree_util.tree_map(np.asarray, params)
@@ -36,6 +37,9 @@ def _jax_params(arch):
 def _batch(cfg, seed, s=S):
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)}
+    if cfg.arch_type == "encdec":
+        out["frontend_embeds"] = (rng.standard_normal((B, ENC_FRAMES, cfg.d_model))
+                                  * 0.02).astype(np.float32)
     if cfg.frontend == "vision":
         fe = min(cfg.frontend_tokens, s)
         out["frontend_embeds"] = (rng.standard_normal((B, fe, cfg.d_model)) * 0.02).astype(np.float32)
@@ -48,11 +52,12 @@ def _to_torch(batch):
         torch.int64 if v.dtype == np.int32 else torch.float32) for k, v in batch.items()}
 
 
-def _prefill_and_decode(arch, s, max_len, steps=EXTRA):
-    """Prefill ``s`` tokens and decode ``steps`` through both packages, the
-    logits compared at every step; returns the port's caches."""
-    jax_api, jax_params, np_params = _jax_params(arch)
-    cfg = get_config(arch, reduced=True)
+def _prefill_and_decode(arch, s, max_len, steps=EXTRA, **overrides):
+    """Prefill ``s`` tokens and decode ``steps`` through both packages (the
+    reduced config, with ``overrides`` in both), the logits compared at every
+    step; returns the port's caches."""
+    jax_api, jax_params, np_params = _jax_params(arch, **overrides)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **overrides)
     api = build_model(cfg)
     params = params_from_numpy(np_params, cfg, device="cpu")
     batch = _batch(cfg, 0, s)
@@ -96,6 +101,46 @@ def test_decode_past_the_window_matches_jax():
     the oldest entries of the rolling cache."""
     caches = _prefill_and_decode("mixtral-8x7b", 10, 64, steps=12)
     assert caches["blocks"][0]["k"].shape[1] == 16
+
+
+@pytest.mark.parametrize("windows", [1, 2, 3])
+def test_hybrid_prompts_of_whole_windows_match_jax(windows):
+    """Reduced recurrentgemma's local attention has a window of 16
+    (``attention_window``; its ``sliding_window`` is 0): prompts of one, two
+    and three windows fill and roll its cache of 16, and the longer two
+    prefill banded on the plain route."""
+    from repro_torch.kernels.attention import ref
+
+    cfg = get_config("recurrentgemma-9b", reduced=True)
+    assert (cfg.sliding_window, cfg.attention_window) == (0, 16)
+    s = 16 * windows
+    assert ref.uses_banded(s, s, causal=True, window=16, q_offset=0) == (windows > 1)
+    caches = _prefill_and_decode("recurrentgemma-9b", s, 64)
+    assert transformer.layer_kinds(cfg)[2] == "attn_mlp"
+    assert caches["blocks"][2]["k"].shape[1] == 16
+
+
+def test_hybrid_decode_past_the_window_matches_jax():
+    """A 10-token prompt, then 12 decode steps past the hybrid's window of 16."""
+    caches = _prefill_and_decode("recurrentgemma-9b", 10, 64, steps=12)
+    assert caches["blocks"][2]["k"].shape[1] == 16
+    assert caches["blocks"][0]["h"].dtype == torch.float32
+
+
+def test_hybrid_with_recurrentgemmas_head_layout_matches_jax():
+    """recurrentgemma-9b's attention layout at a narrow width: 16 query heads
+    of dim 256 on one kv head."""
+    _prefill_and_decode("recurrentgemma-9b", 20, 40, num_heads=16, num_kv_heads=1,
+                        head_dim=256)
+
+
+def test_hybrid_with_a_tail_matches_jax():
+    """Five layers: one (rglru, rglru, attn) superblock and a tail of two
+    rglru blocks, converted by ``params_from_numpy`` and run in the
+    reference's order."""
+    caches = _prefill_and_decode("recurrentgemma-9b", 18, 24, num_layers=5)
+    assert [set(c) for c in caches["blocks"]] == [{"conv", "h"}] * 2 + [{"k", "v"}] + \
+        [{"conv", "h"}] * 2
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_prefill(arch):
@@ -144,10 +189,54 @@ def test_init_scale_rule_and_device_contract():
             api.init(0)
 
 
-@pytest.mark.parametrize("arch", ("recurrentgemma-9b", "seamless-m4t-large-v2"))
-def test_unported_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        build_model(get_config(arch, reduced=True))
+def test_encdec_parameters_convert_exactly():
+    """The enc-dec tree: encoder and decoder blocks stacked on a leading
+    layers axis, the encoder's own norm; one dict per layer in the port."""
+    jax_api = jax_build_model(jax_get_config("seamless-m4t-large-v2", reduced=True))
+    tree = jax.tree_util.tree_map(np.asarray, jax_api.init(jax.random.key(0)))  # bf16
+    cfg = get_config("seamless-m4t-large-v2", reduced=True)
+    params = params_from_numpy(tree, cfg, device="cpu")
+    decls = build_model(cfg).param_decls
+    assert set(params) == set(decls) == {"embed", "enc_blocks", "enc_norm", "dec_blocks",
+                                         "final_norm"}
+    for name, n in (("enc_blocks", cfg.encoder_layers), ("dec_blocks", cfg.num_layers)):
+        assert len(params[name]) == len(decls[name]) == n
+        for i, block in enumerate(params[name]):
+            for path, leaf in _leaves(block):
+                want = _at(tree[name], path)[i]
+                assert leaf.dtype == torch.bfloat16
+                assert tuple(leaf.shape) == _at(decls[name][i], path).shape
+                np.testing.assert_array_equal(leaf.float().numpy(), want.astype(np.float32))
+    np.testing.assert_array_equal(params["enc_norm"]["scale"].float().numpy(),
+                                  tree["enc_norm"]["scale"].astype(np.float32))
+    with pytest.raises(ValueError, match="leading axes"):
+        params_from_numpy(tree, dataclasses.replace(cfg, num_layers=3), device="cpu")
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def test_hybrid_and_encdec_build_model_apis():
+    """Both families build through ``build_model``; the enc-dec cache holds
+    the cross K/V of the reference's 4096 encoder frames."""
+    for arch in ("recurrentgemma-9b", "seamless-m4t-large-v2"):
+        assert build_model(get_config(arch)).cfg.name == arch
+    cfg = get_config("seamless-m4t-large-v2", reduced=True)
+    decls = build_model(cfg).cache_decls(2, 48)
+    assert len(decls["self"]) == len(decls["cross_k"]) == cfg.num_layers
+    assert decls["cross_k"][0].shape == (2, 4096, cfg.num_kv_heads, cfg.head_dim)
+    assert decls["self"][0]["k"].shape == (2, 48, cfg.num_kv_heads, cfg.head_dim)
 
 
 def test_ssm_parameters_convert_exactly():

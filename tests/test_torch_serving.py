@@ -2,8 +2,10 @@
 parameters and submissions must give the same greedy token streams,
 allocations and metrics.  Three fleets: dense agents (granite-8b,
 qwen2-vl-2b), the reference's own two-agent engine fleet
-(tests/test_serving.py: minitron-4b and mamba2-370m), and the paper's
-Table I fleet (``launch/serve.py::DEFAULT_FLEET``, mixtral-8x7b included).  The serverless layers (workflow routing, the
+(tests/test_serving.py: minitron-4b and mamba2-370m), the same fleet with
+the hybrid recurrentgemma-9b in mamba's place, and the paper's Table I fleet
+(``launch/serve.py::DEFAULT_FLEET``, mixtral-8x7b included).  An enc-dec
+agent fails in both engines alike.  The serverless layers (workflow routing, the
 warm pool, failures) are held the same way, each on its own and all three
 together."""
 import math
@@ -38,6 +40,12 @@ AGENTS = (("nlp", "granite-8b", 100.0, 100.0, 0.2, 1),
 # tests/test_serving.py::_fleet_2 and ::_engine
 AGENTS_2 = (("fast", "minitron-4b", 100.0, 100.0, 0.2, 1),
             ("slow", "mamba2-370m", 500.0, 20.0, 0.3, 2))
+# The two-agent fleet with the hybrid family in mamba's place: reduced
+# recurrentgemma-9b's local attention has a window of 16, so its cache of 16
+# entries rolls.
+AGENTS_HYBRID = (AGENTS_2[0], ("slow", "recurrentgemma-9b", 500.0, 20.0, 0.3, 2))
+# An enc-dec agent beside a dense one.
+AGENTS_ENCDEC = (AGENTS_2[0], ("speech", "seamless-m4t-large-v2", 500.0, 20.0, 0.3, 2))
 # launch/serve.py::DEFAULT_FLEET, as (name, arch, AgentSpec fields after the
 # name); reduced mixtral's window is 16, so its cache of 16 entries rolls.
 AGENTS_TABLE_I = tuple((name, arch, 1000.0, tput, min_gpu, pri)
@@ -48,7 +56,7 @@ MAX_LEN, SLOTS, BUDGET = 48, 2, 32
 @pytest.fixture(scope="module")
 def jax_params():
     out = {}
-    for arch in {a[1] for a in AGENTS + AGENTS_2 + AGENTS_TABLE_I}:
+    for arch in {a[1] for a in AGENTS + AGENTS_2 + AGENTS_TABLE_I + AGENTS_HYBRID + AGENTS_ENCDEC}:
         api = jax_build_model(jax_get_config(arch, reduced=True))
         out[arch] = (api, api.init(jax.random.key(0), dtype=jnp.float32))
     return out
@@ -162,6 +170,55 @@ def test_short_prompt_to_mamba_raises_in_both_engines(jax_params):
     the batched cache cannot take, in the reference and in the port."""
     for eng in _engines("adaptive", jax_params, AGENTS_2):
         eng.submit("slow", np.arange(2), 3)
+        with pytest.raises(ValueError):
+            eng.step()
+
+
+@pytest.mark.parametrize("policy", ["adaptive", "round_robin"])
+def test_hybrid_fleet_matches_jax_engine(policy, jax_params):
+    """minitron-4b beside recurrentgemma-9b: attention caches and rglru
+    (conv window, state) caches side by side; prompts of up to 29 tokens
+    fill and roll the hybrid's cache of 16, and decodes pass it."""
+    jax_eng, eng = _engines(policy, jax_params, AGENTS_HYBRID, budget=96)
+    jax_reqs, reqs = _drive((jax_eng, eng), agents=AGENTS_HYBRID, rate=1.0, prompt=(3, 30))
+    slow = [r for r in eng.completed if r.agent == "slow"]
+    assert {r.agent for r in eng.completed} == {"fast", "slow"}
+    assert eng.runtimes[1].caches["blocks"][2]["k"].shape[1] == 16
+    assert any(len(r.prompt) > 16 for r in slow)
+    _assert_engines_agree(jax_eng, eng, jax_reqs, reqs)
+
+
+def test_short_prompt_to_hybrid_raises_in_both_engines(jax_params):
+    """As for mamba: a two-token prompt leaves an rglru conv tail of two rows
+    that the cache's three cannot take, in the reference and in the port."""
+    for eng in _engines("adaptive", jax_params, AGENTS_HYBRID):
+        eng.submit("slow", np.arange(2), 3)
+        with pytest.raises(ValueError):
+            eng.step()
+
+
+@pytest.mark.parametrize("agents", [AGENTS_2, AGENTS_HYBRID], ids=["mamba", "hybrid"])
+def test_one_token_prompt_is_broadcast_in_both_engines(agents, jax_params):
+    """A one-token prompt's conv tail is one row; the reference's
+    ``.at[slot].set`` broadcasts it over the cache's conv window (which
+    should hold zeros before it) and serves, and the port copies that: the
+    same token streams."""
+    jax_eng, eng = _engines("adaptive", jax_params, agents)
+    reqs = [e.submit("slow", np.arange(1), 3) for e in (jax_eng, eng)]
+    for e in (jax_eng, eng):
+        for _ in range(3):
+            e.step()
+    assert reqs[1].tokens_out == reqs[0].tokens_out and len(reqs[1].tokens_out) == 3
+    _assert_engines_agree(jax_eng, eng, [reqs[0]], [reqs[1]])
+
+
+def test_encdec_agent_raises_in_both_engines(jax_params):
+    """The engine feeds an enc-dec agent 64 zero frames, but its batched
+    cache holds the cross K/V of 4096 (the reference's encoder length for
+    decode): the first prefill's cache does not fit, in the reference and
+    in the port."""
+    for eng in _engines("adaptive", jax_params, AGENTS_ENCDEC):
+        eng.submit("speech", np.arange(5), 3)
         with pytest.raises(ValueError):
             eng.step()
 
