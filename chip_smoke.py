@@ -36,6 +36,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    4096) and decode over a full rolling cache of 2048; seamless-m4t-large-
    v2's encoder (4096 frames, no mask) and cross attention in decode (one
    query row over 64 and 4096 frames), both dtypes.
+3b. Gradients: the flash and SSD kernels inside autograd
+   (``_common.PlainGrad``: the kernel's forward, the plain version's
+   backward) against the plain versions' own autograd with the same
+   cotangent, both dtypes, at the shape cases of ``tests/test_kernels.py``
+   and at the training shapes (flash at qwen2-vl-2b's 2 x 4096 tokens, 12 q
+   / 2 kv heads; SSD at mamba2-370m's 4 x 4096, with and without ``h0``),
+   each input's largest gap held at 1e-5 of its max|g|; at the training
+   shapes three times: the kernel forward with the plain backward, the
+   plain forward and backward, and SDPA's forward and backward as a
+   yardstick.  The decode kernel must refuse an operand that requires grad.
 4. Full-width models, kernels vs plain versions, a prefill and decode steps
    each, compared step by step, at published widths with seeded random
    weights: granite-8b in bfloat16 and mamba2-370m in float32 (held) and in
@@ -55,7 +65,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    held as granite-8b is, beside the masked-vs-banded yardstick;
    seamless-m4t-large-v2 (the enc-dec family) whole in float32, 4096
    encoder frames, a 512-token prompt and 8 steps, held at 1e-3.
-5. The slices, each driven for 8 ticks of Poisson traffic under the paper's
+5. The slices, each driven for up to 8 ticks of Poisson traffic under the paper's
    allocator with every kernel's launch counter zeroed just before and read
    just after (``engine_tick`` lines: per-agent prefill and decode seconds,
    launches, device GiB allocated): ``build_engine`` over the dense Table I
@@ -66,7 +76,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``hybrid_fleet``: the same rows with recurrentgemma-9b, all 38 layers,
    as the reasoning specialist), each of whose reduced twins on the CPU must
    schedule exactly as the card.  The dense fleet runs 4 ticks
-   (``DENSE_TICKS``, cut from 8 to keep the script's time; printed).
+   (``DENSE_TICKS``), the Table I and hybrid fleets 6
+   (``TWIN_FLEET_TICKS``), each cut from 8 to keep the script's time;
+   printed.
 6. The serverless layers: ``table2`` runs every registered policy through
    the simulator on the card (Table II's fleet and workload), its step loop
    under sync debug mode "error", checks the Table II anchors and each
@@ -74,8 +86,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    a reactive pool, the ``chaos`` scenario) and the conservation of queue
    mass with capacity and failures on; ``sweep`` runs the four sweep grids
    on the card as streams (the Table II grid and its chaos axis, five
-   fleets of 4–256 agents, five workflows, four capacity policies), each
-   loop under the same sync check: the anchors, every cell against the
+   fleets of 4–256 agents, five workflows, four capacity policies; the
+   chaos, workflow and capacity grids at 50 steps and the fleet grid at 25,
+   ``SWEEP_AXIS_STEPS`` and ``SWEEP_FLEET_STEPS``, each cut by half to keep
+   the script's time), each loop under the same sync check: the anchors, every cell against the
    CPU's stream and the card's trace oracle (and one or two lead rows of
    each grid against the oracle at the grid's own horizon, each oracle
    run timed), block sizes 1, 8 and 64
@@ -83,10 +97,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    CPU's bits, and the N = 1024 frontier synthesized on the card at the
    longest horizon that fits ``SWEEP_FRONTIER_S`` of loop (the reference's
    is 10^4 steps; the cut is printed; ``SWEEP_FRONTIER_S`` was cut from 20
-   s to 5 s to keep the script's time); ``serverless_engine`` serves the
+   s to 3 s to keep the script's time); ``serverless_engine`` serves the
    full-width dense fleet with routing, a reactive warm pool and failures
    on (launch counters zeroed and read as in phase 5), and checks that the
    same engine at reduced widths on the CPU schedules exactly as the card.
+6c. Train (``phase_train``, run when no fleet is resident on the card):
+   qwen2-vl-2b, mamba2-370m and granite-moe-1b-a400m at published widths
+   cut to 4 layers, float32, 3 ``build_train_step`` steps through the
+   kernels and 3 through the plain versions from the same parameters
+   (batch 2 x seq 1024): loss, ce, aux and grad_norm held at each step,
+   the parameters after the last where the gradient is not at rounding
+   level (``train_compare``); then qwen2-vl-2b whole in bf16 (2 x 4096, the
+   reference's ``train_4k`` length at a batch cut from 256) and mamba2-370m
+   whole (4 x 4096), 20 steps each of the launcher's AdamW on
+   ``SyntheticTokens``, one ``train_step`` line a step (loss, grad_norm,
+   lr, host-clock step time after a sync, tokens/s, kernel launches: each
+   layer in the forward and in remat's recompute, peak GiB, ``mfu``); the
+   loss must stay finite and drop by at least 0.3; on mamba2-370m a
+   checkpoint saved after step 10 and restored into a fresh tree must
+   resume step 11 bit for bit.
 7. Profile: full-width granite-8b and mixtral-8x7b (the fleet's 16 layers)
    decode steps (4 rows, a 300-entry cache) on the host clock and in
    ``torch.profiler``: the device's busy share of a step and its device
@@ -97,10 +126,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the same way (its host clock read before the first profile), the device
    kernels and time of one layer of each kind (``profile_layer_kinds``), and
    the RG-LRU scan's share of the device time of a 2048-token prefill
-   (``rglru_scan``); last, the device kernels per step and the busy share of
+   (``rglru_scan``); then the device kernels per step and the busy share of
    a Table II ``simulate`` under ``adaptive`` and of the Table II grid's
-   stream (``sweep_profile``).  A ``time`` line after each group of phases
-   gives the script's time so far.
+   stream (``sweep_profile``); last, one training step of each whole model
+   of the train phase (``profile_train``: busy share over its median step,
+   the kernel's device time, the plain backward's, the forward's and the
+   optimizer's, and the logits and CE timed alone at the step's shapes).
+   A ``time`` line after each group of phases gives the script's time so
+   far.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -609,6 +642,131 @@ def phase_kernels(gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: gradients through the kernels' autograd Functions
+# ---------------------------------------------------------------------------
+
+# The training shapes: qwen2-vl-2b's attention (12 q / 2 kv heads of 128,
+# causal) at 2 x 4096 tokens; mamba2-370m's SSD (32 heads of P 64, N 128,
+# chunk 128) at 4 x 4096, without and with h0.
+GRAD_FLASH_TRAIN = [(2, 4096, 4096, 12, 2, 128, True, 0)]
+GRAD_SSD_TRAIN = [(4, 4096, 32, 64, 128, 128, False), (4, 4096, 32, 64, 128, 128, True)]
+# The Function's backward is the plain version's, recomputed from the same
+# inputs, and both runs get the same cotangent: the gradients can differ
+# only where the card sums in another order.  Each input's largest gap over
+# its gradient's max|g|.
+GRAD_RTOL = 1e-5
+
+
+def _grad_gaps(out, want, inputs, plain_inputs, cots) -> list:
+    got = torch.autograd.grad(out, inputs, cots)
+    ref_grads = torch.autograd.grad(want, plain_inputs, cots)
+    return [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            for g, w in zip(got, ref_grads)]
+
+
+def check_flash_grad(case, dtype, timed: bool) -> dict:
+    from repro_torch.kernels.attention import flash_attention as fa, ref
+
+    b, s_q, s_kv, h, kv, d, causal, window = case
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    qkv = [_randn(gen, (b, s, n, d), dtype) for s, n in ((s_q, h), (s_kv, kv), (s_kv, kv))]
+    cot = _randn(gen, (b, s_q, h, d), dtype)
+    kw = dict(causal=causal, window=window, q_offset=s_kv - s_q if causal else 0)
+    leaves = [x.clone().requires_grad_() for x in qkv]
+    plain = [x.clone().requires_grad_() for x in qkv]
+    out = fa.flash_attention(*leaves, **kw)
+    check(out.grad_fn is not None, "flash_attention: the kernel's output is cut off from the graph")
+    gaps = _grad_gaps(out, ref.flash_plain(*plain, **kw), leaves, plain, cot)
+    row = {"kernel": "flash_attention", "case": list(case), "dtype": str(dtype).split(".")[-1],
+           "grad_gap": dict(zip(("q", "k", "v"), gaps)), "rtol": GRAD_RTOL}
+    if timed:
+        bhsd = [x.transpose(1, 2).detach().requires_grad_() for x in qkv]
+        cot_t = cot.transpose(1, 2)
+        row.update({
+            "kernel_fwd_plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                fa.flash_attention(*leaves, **kw), leaves, cot), iters=5, warmup=1),
+            "plain_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                ref.flash_plain(*plain, **kw), plain, cot), iters=5, warmup=1),
+            "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                _sdpa(*bhsd, is_causal=True), bhsd, cot_t), iters=5, warmup=1),
+        })
+    return row
+
+
+def check_ssd_grad(case, dtype, timed: bool) -> dict:
+    from repro_torch.kernels.ssd import ref, ssd_scan
+
+    chunk, with_h0 = case[5], case[6]
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(case, dtype, seed=6)
+    inputs = [t for t in (x, dt, A, Bm, Cm, D, h0) if t is not None]
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    cots = [_randn(gen, x.shape, dtype),
+            torch.randn((x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]), generator=gen,
+                        device=DEVICE)]
+
+    def call(fn, args):
+        args = list(args) + [None] * (7 - len(args))
+        return list(fn(*args[:6], h0=args[6], chunk=chunk))
+
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    plain = [t.clone().requires_grad_() for t in inputs]
+    out = call(ssd_scan.ssd, leaves)
+    check(all(o.grad_fn is not None for o in out), "ssd: the kernel's outputs are cut off")
+    gaps = _grad_gaps(out, call(ref.ssd_chunked, plain), leaves, plain, cots)
+    names = ("x", "dt", "A", "Bm", "Cm", "D", "h0")
+    row = {"kernel": "ssd", "case": list(case), "dtype": str(dtype).split(".")[-1],
+           "grad_gap": dict(zip(names, gaps)), "rtol": GRAD_RTOL}
+    if timed:
+        row.update({
+            "kernel_fwd_plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                call(ssd_scan.ssd, leaves), leaves, cots), iters=5, warmup=1),
+            "plain_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                call(ref.ssd_chunked, plain), plain, cots), iters=5, warmup=1),
+            "library_fwd_bwd_ms": None,
+        })
+    return row
+
+
+def check_decode_refuses_grad() -> None:
+    from repro_torch.kernels.attention import decode_attention as da
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    q = _randn(gen, (4, 32, 128), torch.bfloat16).requires_grad_()
+    kc, vc = (_randn(gen, (4, 1024, 8, 128), torch.bfloat16) for _ in range(2))
+    try:
+        da.decode_attention(q, kc, vc, 300)
+    except RuntimeError as e:
+        emit({"phase": "decode_refuses_grad", "error": str(e)})
+        return
+    raise RuntimeError("chip_smoke: the decode kernel returned a tensor cut off from the graph")
+
+
+def phase_gradients() -> dict:
+    """The Functions' gradients against the plain versions' own autograd,
+    both dtypes, at tests/test_kernels.py's cases and the training shapes
+    (timed there: the kernel forward with the plain backward, the plain
+    forward and backward, and SDPA's forward and backward as a yardstick);
+    the decode wrapper must refuse an operand that requires grad."""
+    rows = {}
+    runs = ([(check_flash_grad, c, dt, False) for c in FLASH_CASES for dt in ATOL]
+            + [(check_ssd_grad, c, dt, False) for c in SSD_CASES for dt in SSD_ATOL]
+            + [(check_flash_grad, c, dt, True) for c in GRAD_FLASH_TRAIN for dt in ATOL]
+            + [(check_ssd_grad, c, dt, True) for c in GRAD_SSD_TRAIN for dt in SSD_ATOL])
+    for fn, case, dtype, timed in runs:
+        row = fn(case, dtype, timed)
+        emit({"phase": "kernel_grad", **row})
+        worst = max(row["grad_gap"].values())
+        check(worst <= GRAD_RTOL,
+              f"{row['kernel']} {case} {row['dtype']} gradients: {row['grad_gap']}")
+        if timed:
+            rows[(row["kernel"], tuple(case), row["dtype"])] = row
+    check_decode_refuses_grad()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: full-width models through the kernels and the plain versions
 # ---------------------------------------------------------------------------
 
@@ -1028,8 +1186,8 @@ def phase_fleet_with_twin(fleet, label: str, num_layers=None, ticks: int = 8,
                        budget_tokens=budget_tokens, max_len=max_len, batch_slots=4,
                        device=DEVICE)
     print(f"{label} engine built in {time.perf_counter() - t0:.1f} s; "
-          f"{[arch for _, arch, *_ in fleet]}; depth cut {num_layers or 'none'}, widths uncut",
-          flush=True)
+          f"{[arch for _, arch, *_ in fleet]}; depth cut {num_layers or 'none'}, widths uncut; "
+          f"{ticks} of 8 ticks", flush=True)
     schedule = poisson_schedule({name: rate for name, *_, rate in fleet}, ticks=ticks)
     out = drive(eng, {}, label, ticks=ticks, schedule=schedule)
     for name in ("flash_attention", "decode_attention"):
@@ -1050,19 +1208,26 @@ def phase_fleet_with_twin(fleet, label: str, num_layers=None, ticks: int = 8,
     return out["launches"]
 
 
+# Cut from 8 to keep the script's time (the train phase's); at 6 ticks every
+# agent of both fleets still completes requests (at 4 the vision agent
+# completes none).
+TWIN_FLEET_TICKS = 6
+
+
 def phase_table_i_engine() -> dict:
     """The paper's Table I fleet (``DEFAULT_FLEET``) at published widths, with
     mixtral-8x7b cut in depth to fit the card (``FULL_WIDTH_CUT``)."""
     from repro_torch.launch.serve import DEFAULT_FLEET, FULL_WIDTH_CUT
 
-    return phase_fleet_with_twin(DEFAULT_FLEET, "table_i", num_layers=FULL_WIDTH_CUT)
+    return phase_fleet_with_twin(DEFAULT_FLEET, "table_i", num_layers=FULL_WIDTH_CUT,
+                                 ticks=TWIN_FLEET_TICKS)
 
 
 def phase_hybrid_engine() -> dict:
     """The hybrid fleet (``hybrid_fleet``): recurrentgemma-9b at all 38
     layers beside the Table I fleet's qwen2-vl-2b and granite-8b, ~39 GB of
     weights, no depth cut."""
-    return phase_fleet_with_twin(hybrid_fleet(), "hybrid")
+    return phase_fleet_with_twin(hybrid_fleet(), "hybrid", ticks=TWIN_FLEET_TICKS)
 
 
 # ---------------------------------------------------------------------------
@@ -1174,12 +1339,17 @@ def phase_table2() -> dict:
 # ---------------------------------------------------------------------------
 
 SWEEP_FLEET_SIZES = (4, 8, 16, 64, 256)   # benchmarks/fleet_scaling.py
-SWEEP_FLEET_STEPS = 50
+# The grids' horizons, cut to keep the script's time (the train phase's):
+# the fleet-scaling grid from 50 steps to 25, the chaos, workflow and
+# capacity grids from the scenario library's 100 steps to 50.  The Table II
+# grid keeps its 100 steps (its anchors are 100-step numbers).
+SWEEP_FLEET_STEPS = 25
+SWEEP_AXIS_STEPS = 50
 # Every cell of a lead-axis grid is held to the card's trace oracle at this
 # horizon (the oracle runs one simulate per cell), and the lead rows of
 # SWEEP_LEAD_ROWS at the grid's own horizon; the grids themselves and the
 # CPU comparisons run at full length.
-SWEEP_ORACLE_STEPS = 10
+SWEEP_ORACLE_STEPS = 5   # cut from 10 to keep the script's time (the train phase's)
 SWEEP_LEAD_ROWS = {"chaos": ("chaos",), "fleets": ("fleet4_n256",),
                    "workflows": ("synthetic_s0",), "capacity": ("reactive_cold", "scale_to_zero")}
 # The frontier: the reference benchmark's is 10^4 steps at N = 1024; here the
@@ -1187,7 +1357,7 @@ SWEEP_LEAD_ROWS = {"chaos": ("chaos",), "fleets": ("fleet4_n256",),
 # the Table II grid's measured rate (the same 72 cells a step).
 SWEEP_FRONTIER_N = 1024
 SWEEP_FRONTIER_STEPS = 10_000
-SWEEP_FRONTIER_S = 5.0    # cut from 20 s to keep the script's time
+SWEEP_FRONTIER_S = 3.0    # cut from 20 s, then 5 s, to keep the script's time
 SWEEP_FRONTIER_BLOCK = 64
 SWEEP_BLOCKS = (1, 8, 64)
 
@@ -1289,7 +1459,7 @@ def phase_sweep() -> dict:
     (``sweep`` over ``scenario_library(PAPER_ARRIVAL_RATES, 100)``, the whole
     registry, 72 cells), the same with the chaos axis
     (``failure_scenario_library()``), ``sweep_fleets`` over
-    ``synthetic_fleet(n, seed=n)`` for n in SWEEP_FLEET_SIZES at 50 steps,
+    ``synthetic_fleet(n, seed=n)`` for n in SWEEP_FLEET_SIZES at SWEEP_FLEET_STEPS,
     and ``sweep_workflows`` and ``sweep_capacity`` on the paper fleet.
     Checks the Table II anchors in the constant column, every cell against
     the CPU's stream and against the card's trace oracle (the lead-axis
@@ -1308,6 +1478,7 @@ def phase_sweep() -> dict:
     fleet = agents.paper_fleet()
     rates = agents.PAPER_ARRIVAL_RATES
     lib = sw.scenario_library(rates, 100)
+    lib_axis = sw.scenario_library(rates, SWEEP_AXIS_STEPS)
     lib_short = sw.scenario_library(rates, SWEEP_ORACLE_STEPS)
     chaos_lib = failures.failure_scenario_library()
     elastic = SimConfig(num_gpus=8.0)
@@ -1315,27 +1486,32 @@ def phase_sweep() -> dict:
     p = len(alloc.policy_names())
     n_big = SWEEP_FLEET_SIZES[-1]
     lead_oracles = {  # each grid's SWEEP_LEAD_ROWS alone, at the grid's horizon
-        "chaos": lambda **k: sw.sweep(fleet, lib, failures=chaos_lib[-1:], **k),
+        "chaos": lambda **k: sw.sweep(fleet, lib_axis, failures=chaos_lib[-1:], **k),
         "fleets": lambda **k: sw.sweep_fleets(
             fleets[-1:], rate_vectors=[workload.synthetic_rates(n_big, seed=len(fleets) - 1)],
             fleet_names=SWEEP_LEAD_ROWS["fleets"], num_steps=SWEEP_FLEET_STEPS, **k),
         "workflows": lambda **k: sw.sweep_workflows(
-            fleet, workflows=sw.workflow_scenario_library(fleet.num_agents)[-1:], **k),
+            fleet, workflows=sw.workflow_scenario_library(fleet.num_agents)[-1:],
+            num_steps=SWEEP_AXIS_STEPS, **k),
         "capacity": lambda **k: sw.sweep_capacity(
-            fleet, capacities=sw.capacity_scenario_library()[2:], config=elastic, **k),
+            fleet, capacities=sw.capacity_scenario_library()[2:], config=elastic,
+            num_steps=SWEEP_AXIS_STEPS, **k),
     }
     grids = {
         "table2": (lambda s, **k: sw.sweep(fleet, lib if s is None else s, **k), 100, 8),
-        "chaos": (lambda s, **k: sw.sweep(fleet, lib if s is None else s, failures=chaos_lib,
-                                          **k), 100, 8 * len(chaos_lib)),
+        "chaos": (lambda s, **k: sw.sweep(fleet, lib_axis if s is None else s,
+                                          failures=chaos_lib, **k),
+                  SWEEP_AXIS_STEPS, 8 * len(chaos_lib)),
         "fleets": (lambda s, **k: sw.sweep_fleets(
             fleets, num_steps=SWEEP_FLEET_STEPS if s is None else SWEEP_ORACLE_STEPS, **k),
             SWEEP_FLEET_STEPS, 8 * len(fleets)),
         "workflows": (lambda s, **k: sw.sweep_workflows(
-            fleet, num_steps=100 if s is None else SWEEP_ORACLE_STEPS, **k), 100, 8 * 5),
+            fleet, num_steps=SWEEP_AXIS_STEPS if s is None else SWEEP_ORACLE_STEPS, **k),
+            SWEEP_AXIS_STEPS, 8 * 5),
         "capacity": (lambda s, **k: sw.sweep_capacity(
-            fleet, config=elastic, num_steps=100 if s is None else SWEEP_ORACLE_STEPS, **k),
-            100, 8 * 4),
+            fleet, config=elastic,
+            num_steps=SWEEP_AXIS_STEPS if s is None else SWEEP_ORACLE_STEPS, **k),
+            SWEEP_AXIS_STEPS, 8 * 4),
     }
     walls = {}
     with _StreamClock() as clock:
@@ -1561,6 +1737,348 @@ def phase_serverless_engine(ticks: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6c: training through the kernels
+# ---------------------------------------------------------------------------
+
+# Kernels vs plain, step by step: float32, published widths, each model cut
+# to 4 layers, batch 2 x seq 1024, 3 steps of the launcher's AdamW.
+TRAIN_CMP = ("qwen2-vl-2b", "mamba2-370m", "granite-moe-1b-a400m")
+TRAIN_CMP_LAYERS, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ, TRAIN_CMP_STEPS = 4, 2, 1024, 3
+TRAIN_LR = 1e-3
+# Tolerances of the comparison, float32 on both routes: the kernels and the
+# plain versions differ in the order of their sums (logits within ~2e-6 of
+# their range, phase 4), so the losses within 1e-4 relative and the global
+# norm within 1e-3; the step-1 gradients (same parameters on both routes)
+# within TRAIN_GRAD_RTOL of each leaf's max|g|.  Adam's normalised step m/√v
+# turns a gradient at rounding level into a step of ±lr whatever its size,
+# so the parameters are held only where every step's gradient is above
+# rounding level: above TRAIN_ROUNDING times the largest gap between the
+# routes in its leaf at that step.  There each step's gradient agrees
+# within 1%, m̂/√v̂ within ~3%, and the parameters after three steps within
+# 0.1·lr.  The share of elements at rounding level is printed, and apart
+# from it the share without any gradient (the embedding rows of tokens
+# absent from the batches).
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_RTOL, TRAIN_ROUNDING = 1e-4, 1e-3, 1e-3, 100.0
+TRAIN_PARAM_ATOL = 0.1 * TRAIN_LR
+# Whole models in bf16: the reference's train_4k length (4096 tokens) at a
+# batch cut from its 256 to what one card holds beside the optimizer state.
+TRAIN_WHOLE = (("qwen2-vl-2b", 2, 4096), ("mamba2-370m", 4, 4096))
+TRAIN_4K_BATCH = 256   # repro/models/model.py INPUT_SHAPES["train_4k"]
+TRAIN_STEPS = 20
+TRAIN_MIN_DROP = 0.3   # tests/test_models.py::TestTrainingConvergence's yardstick
+TRAIN_CKPT_AFTER = 10  # mamba2-370m: save after step 10, resume step 11
+
+
+def _train_kernel(cfg):
+    """The kernel module a model's training forward launches, and its launches
+    per step (each layer once in the forward and once in remat's recompute)."""
+    from repro_torch.kernels.attention import flash_attention as fa
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models import transformer
+
+    kinds = transformer.layer_kinds(cfg)
+    if cfg.arch_type == "ssm":
+        return "ssd", ssd_scan, 2 * kinds.count("ssm")
+    return "flash_attention", fa, 2 * sum(k.startswith("attn") for k in kinds)
+
+
+def _train_flops(cfg, batch: int, seq: int, matmul_params: int) -> float:
+    """Model flops of one step: 6·N·tokens for the N parameters that enter a
+    product (all but the input embedding table), plus causal attention's two
+    products, forward (4·H·D per query-key pair) and backward (twice that).
+    The SSD scan's own products are not counted."""
+    _, _, per_step = _train_kernel(cfg)
+    attn_layers = 0 if cfg.arch_type == "ssm" else per_step // 2
+    pairs = seq * (seq + 1) // 2
+    return (6.0 * matmul_params * batch * seq
+            + 12.0 * attn_layers * batch * cfg.num_heads * cfg.head_dim * pairs)
+
+
+def _train_batch(data, step: int, cfg, seed: int = 0) -> dict:
+    """``data``'s batch ``step`` as the launcher puts it on the card, except
+    that the vision stub's frontend embeddings are seeded N(0, 0.02²) rows
+    (as the reference's ``concrete_inputs`` makes them) and not the
+    launcher's zeros: zero rows stay zero through every layer, and each rms
+    norm multiplies their gradient by 1/√eps, so at qwen2-vl-2b's 28 layers
+    the gradient overflows to NaN in both packages (ROADMAP C)."""
+    from repro_torch.launch.train import to_batch
+
+    batch = to_batch(data.batch(step), cfg, DEVICE)
+    if cfg.frontend == "vision":
+        gen = torch.Generator(device=DEVICE).manual_seed(seed * 100_003 + step)
+        fe = batch["frontend_embeds"]
+        batch["frontend_embeds"] = (torch.randn(fe.shape, generator=gen, device=DEVICE)
+                                    * 0.02).to(fe.dtype)
+    return batch
+
+
+def _clone_tree(tree):
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+@contextlib.contextmanager
+def _recorded_grads():
+    """Record the gradient leaves each ``build_train_step`` step hands to
+    AdamW, in step order."""
+    from repro_torch.training import train_step
+
+    steps, update = [], train_step.adamw_update
+
+    def recording(grads, *args):
+        steps.append([g.clone() for g in grads])
+        return update(grads, *args)
+
+    train_step.adamw_update = recording
+    try:
+        yield steps
+    finally:
+        train_step.adamw_update = update
+
+
+def phase_train_compare(arch: str) -> dict:
+    """3 train steps through the kernels (``impl=None``) and 3 through the
+    plain versions (``impl="ref"``) from the same float32 parameters; loss,
+    ce, aux and grad_norm held at each step, the step-1 gradients, and the
+    parameters after the last step where the gradients are not at rounding
+    level."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import build_train_step
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_CMP_LAYERS)
+    api = build_model(cfg)
+    params0 = api.init(0, dtype=torch.float32, device=DEVICE)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_CMP_SEQ, TRAIN_CMP_BATCH, 0))
+    batches = [_train_batch(data, i, cfg) for i in range(TRAIN_CMP_STEPS)]
+    name, module, per_step = _train_kernel(cfg)
+    runs = {}
+    for impl in (None, "ref"):
+        params = _clone_tree(params0)
+        state = init_opt_state(params)
+        step = build_train_step(api, opt_config(TRAIN_LR, TRAIN_CMP_STEPS), impl=impl)
+        before, metrics = module.launches, []
+        with _recorded_grads() as grads:
+            for b in batches:
+                params, state, m = step(params, state, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+        runs[impl] = (params, grads, metrics, module.launches - before)
+    (kp, kg, km, kl), (rp, rg, rm, rl) = runs[None], runs["ref"]
+    gaps = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for a, b in zip(km, rm))
+            for k in ("loss", "ce", "aux", "grad_norm")}
+    grad_gap = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(kg[0], rg[0]))
+    held_gap, rounding, no_grad, total = 0.0, 0, 0, 0
+    for i, (a, b) in enumerate(zip(tree_leaves(kp), tree_leaves(rp))):
+        held = torch.ones_like(a, dtype=torch.bool)
+        for gk, gr in zip(kg, rg):  # exact zeros on both routes: no gradient that step
+            held &= ((gr[i].abs() > TRAIN_ROUNDING * (gk[i] - gr[i]).abs().max())
+                     | ((gk[i] == 0) & (gr[i] == 0)))
+        none = torch.stack([gr[i] == 0 for gr in rg]).all(0)
+        no_grad += int(none.sum())
+        rounding += int((~held & ~none).sum())
+        total += a.numel()
+        if held.any():
+            held_gap = max(held_gap, float((a - b)[held].abs().max()))
+    row = {"phase": "train_compare", "arch": arch, "layers": cfg.num_layers,
+           "batch": TRAIN_CMP_BATCH, "seq": TRAIN_CMP_SEQ, "dtype": "float32",
+           "loss": [(a["loss"], b["loss"]) for a, b in zip(km, rm)],
+           "aux": [a["aux"] for a in km], "rel_gap": gaps, "step1_grad_gap": grad_gap,
+           "param_gap_held": held_gap, "param_atol": TRAIN_PARAM_ATOL,
+           "rounding_level_share": rounding / total, "no_gradient_share": no_grad / total,
+           "kernel": name, "launches": kl, "launches_plain": rl}
+    emit(row)
+    check(kl == TRAIN_CMP_STEPS * per_step and rl == 0,
+          f"train {arch}: {kl} {name} launches through the kernels, {rl} through the plain "
+          f"route; expected {TRAIN_CMP_STEPS * per_step} and 0")
+    check(all(gaps[k] <= TRAIN_LOSS_RTOL for k in ("loss", "ce", "aux"))
+          and gaps["grad_norm"] <= TRAIN_NORM_RTOL, f"train {arch}: kernels vs plain {gaps}")
+    check(grad_gap <= TRAIN_GRAD_RTOL, f"train {arch}: step-1 gradients {grad_gap} apart")
+    check(held_gap <= TRAIN_PARAM_ATOL, f"train {arch}: parameters {held_gap} apart")
+    check(cfg.arch_type != "moe" or min(row["aux"]) > 0, f"train {arch}: no aux loss")
+    del params0, runs, kp, rp, kg, rg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _trees_equal(a, b) -> bool:
+    from repro_torch.models.params import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
+    """``TRAIN_STEPS`` steps of a whole model in bf16, as ``launch/train.py``
+    trains it, on ``SyntheticTokens`` at the model's vocabulary; one line per
+    step.  The loss must stay finite and drop by ``TRAIN_MIN_DROP``.  On
+    mamba2-370m also the checkpoint: saved after step ``TRAIN_CKPT_AFTER``,
+    restored into a freshly built tree, and step 11 taken from both must give
+    the same parameters and optimizer state bit for bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import build_train_step
+
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    print(f"train: {arch} whole ({cfg.num_layers} layers), bf16, batch {batch} x seq {seq} "
+          f"(batch cut from train_4k's {TRAIN_4K_BATCH}), {TRAIN_STEPS} steps", flush=True)
+    params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
+    state = init_opt_state(params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    flops = _train_flops(cfg, batch, seq, n_params - params["embed"]["embedding"].numel())
+    _, _, rates = peaks(gpu)
+    step = build_train_step(api, opt_config(TRAIN_LR, TRAIN_STEPS))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, seq, batch, 0))
+    name, module, per_step = _train_kernel(cfg)
+    do_ckpt = cfg.arch_type == "ssm"
+    path = ROOT / "build" / "train_ckpt.npz"
+    rows, resumed = [], None
+    for i in range(TRAIN_STEPS):
+        b = _train_batch(data, i, cfg)  # set-up: the host makes the batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t = module.launches, time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        row = {"phase": "train_step", "arch": arch, "step": i + 1,
+               **{k: float(v) for k, v in m.items()}, "s": s, "tokens_per_s": batch * seq / s,
+               "launches": module.launches - before, "kernel": name,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "mfu": flops / s / rates[torch.bfloat16]}
+        emit(row)
+        rows.append(row)
+        check(row["launches"] == per_step,
+              f"train {arch} step {i + 1}: {row['launches']} {name} launches, expected "
+              f"{per_step} (forward and recompute)")
+        if do_ckpt and i + 1 == TRAIN_CKPT_AFTER:
+            t = time.perf_counter()
+            ckpt.save(str(path), {"params": params, "opt": state})
+            fresh = api.init(1, dtype=torch.bfloat16, device=DEVICE)
+            like = {"params": fresh, "opt": init_opt_state(fresh)}
+            resumed = ckpt.restore(str(path), like, device=DEVICE)
+            del fresh, like
+            path.unlink()
+            ckpt_s = time.perf_counter() - t
+        if resumed is not None and i + 1 == TRAIN_CKPT_AFTER + 1:
+            rp, rs, _ = step(resumed["params"], resumed["opt"], b)
+            same = _trees_equal(params, rp) and _trees_equal(state, rs)
+            emit({"phase": "train_checkpoint", "arch": arch, "saved_after": TRAIN_CKPT_AFTER,
+                  "save_restore_s": ckpt_s, "resumed_step_identical": same})
+            check(same, f"train {arch}: the resumed step differs from the uninterrupted one")
+            del resumed, rp, rs
+            resumed = None
+    losses = [r["loss"] for r in rows]
+    host = [r["s"] for r in rows[1:]]  # the first step warms the allocator and cuBLAS
+    summary = {"phase": "train", "arch": arch, "layers": cfg.num_layers, "batch": batch,
+               "seq": seq, "params": n_params, "model_flops_per_step": flops,
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "median_step_s": statistics.median(host),
+               "median_tokens_per_s": batch * seq / statistics.median(host),
+               "median_mfu": flops / statistics.median(host) / rates[torch.bfloat16],
+               "peak_gib": max(r["peak_gib"] for r in rows), "kernel": name,
+               "launches": sum(r["launches"] for r in rows)}
+    emit(summary)
+    check(all(math.isfinite(x) for x in losses), f"train {arch}: a loss is not finite")
+    check(losses[-1] <= losses[0] - TRAIN_MIN_DROP,
+          f"train {arch}: the loss went {losses[0]} -> {losses[-1]} in {TRAIN_STEPS} steps")
+    check(not do_ckpt or TRAIN_CKPT_AFTER < TRAIN_STEPS, "train: no checkpoint step")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_train(gpu: str) -> dict:
+    for arch in TRAIN_CMP:
+        phase_train_compare(arch)
+    return {arch: phase_train_whole(arch, batch, seq, gpu) for arch, batch, seq in TRAIN_WHOLE}
+
+
+def _logits_ce_ms(api, params, batch: int, seq: int) -> float:
+    """Device time (CUDA events) of the unembedding and the CE over a random
+    final hidden state of one step's shape, forward and backward."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    x = torch.randn((batch, seq, api.cfg.d_model), generator=gen, device=DEVICE).to(
+        torch.bfloat16).requires_grad_()
+    w = {k: v.detach().requires_grad_() for k, v in params["embed"].items()}
+    labels = torch.randint(0, api.cfg.vocab_size, (batch, seq), generator=gen, device=DEVICE)
+    return time_ms(lambda: torch.autograd.grad(
+        layers.cross_entropy_loss(layers.unembed(x, w), labels), [x, *w.values()],
+        allow_unused=True), iters=3, warmup=1)
+
+
+def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> None:
+    """One training step of a whole model in ``torch.profiler`` (after one
+    outside it): the device time over the median host-clock step time of
+    ``phase_train_whole`` (the busy share), and the device time of the kernel
+    (forward and recompute), of the plain backward (the ``plain_grad.*``
+    ranges), of the forward and of the optimizer (``train_step.*``), beside
+    the logits and CE timed alone at the step's shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import build_train_step
+
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
+    state = init_opt_state(params)
+    step = build_train_step(api, opt_config(TRAIN_LR, TRAIN_STEPS))
+    b = _train_batch(SyntheticTokens(DataConfig(cfg.vocab_size, seq, batch, 0)), 0, cfg)
+    params, state, _ = step(params, state, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step(params, state, b)
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = ("plain_grad.", "train_step.")  # the ranges' spans on the device timeline
+    kernels = [e for e in _device_events(prof) if not e.name.startswith(spans)]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    kernel_name = "ssd_sm90" if cfg.arch_type == "ssm" else "flash_sm90"
+
+    def range_ms(prefix):
+        return sum(e.device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name.startswith(prefix)) / 1e3
+
+    row = {"phase": "profile_train", "arch": arch, "batch": batch, "seq": seq,
+           "host_step_ms": host_s * 1e3, "device_ms": device_ms,
+           "busy_share": device_ms / (host_s * 1e3), "device_kernels": len(kernels),
+           "kernel_device_ms": sum(e.time_range.elapsed_us() for e in kernels
+                                   if kernel_name in e.name) / 1e3,
+           "plain_backward_device_ms": range_ms("plain_grad."),
+           "forward_device_ms": range_ms("train_step.forward"),
+           "optimizer_device_ms": range_ms("train_step.optimizer"),
+           "logits_ce_fwd_bwd_ms_alone": _logits_ce_ms(api, params, batch, seq)}
+    emit(row)
+    check(device_ms > 0 and row["kernel_device_ms"] > 0,
+          f"the profiler saw no device time in a {arch} training step")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
@@ -1744,6 +2262,8 @@ def main() -> None:
     phase_build()
     summary = phase_kernels(gpu)
     lap("kernels")
+    phase_gradients()
+    lap("gradients")
     phase_model("granite-8b")
     phase_model("mamba2-370m", torch.float32)
     phase_model("mamba2-370m", torch.bfloat16, held=False)
@@ -1786,6 +2306,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     lap("serverless_engine")
+    trained = phase_train(gpu)
+    lap("train")
     # Last: the profiler's device tracing, once started, stays attached to
     # the process and would slow every later launch on the host; so every
     # profiled decode step's host clock is read first.
@@ -1811,6 +2333,9 @@ def main() -> None:
     profile_simulator(sim_walls["adaptive"])
     profile_sweep(sweep_walls["table2"])
     lap("profiles")
+    for arch, batch, seq in TRAIN_WHOLE:
+        profile_train_step(arch, batch, seq, trained[arch]["median_step_s"])
+    lap("train_profiles")
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",
@@ -1831,6 +2356,9 @@ def main() -> None:
             "launches_by_fleet": {"dense": dense[name], "two_agent": two_agent[name],
                                   "serverless": serverless[name], "table_i": table_i[name],
                                   "hybrid": hybrid[name]},
+            # 20 training steps of the model whose forward launches the kernel
+            "launches_by_training": {arch: t["launches"] for arch, t in trained.items()
+                                     if t["kernel"] == name},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["case"], "dtype": row["dtype"],

@@ -7,6 +7,10 @@ the plain version.  ``impl="cuda"`` insists on the kernel and raises for a
 CPU tensor instead of returning the plain result.  ``impl="ref"`` runs the
 plain version wherever the tensors are; only comparisons (``chip_smoke.py``,
 the tests) pass it.
+
+``PlainGrad`` puts a kernel call into autograd: the kernel computes the
+forward, and the backward is the plain version's own (recomputed from the
+saved inputs), since the reference has no backward kernel.
 """
 from __future__ import annotations
 
@@ -42,3 +46,46 @@ def raise_on_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: {OWN_ERRORS.get(err, f'error {err}')}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+class PlainGrad(torch.autograd.Function):
+    """A kernel's forward with its plain version's backward.
+
+    ``forward(ctx, kernel, plain, kwargs, *inputs)`` returns
+    ``kernel(*inputs, **kwargs)``: a tensor or a tuple of tensors, cut off
+    from the graph as any output written through ``data_ptr()`` is.  The
+    backward recomputes ``plain(*inputs, **kwargs)`` under
+    ``torch.enable_grad()`` on the saved inputs and returns its
+    vector-Jacobian product for every input that needs one (``None`` for
+    inputs given as ``None``), inside the profiler range
+    ``plain_grad.<plain's name>``.  No backward kernel exists: the reference's
+    Pallas kernels have no ``custom_vjp``, and ``jax.grad`` differentiates
+    their plain versions.  A test injects the plain version as ``kernel``
+    to hold this backward against native autograd on the CPU.
+    """
+
+    @staticmethod
+    def forward(ctx, kernel, plain, kwargs, *inputs):
+        ctx.plain, ctx.kwargs = plain, kwargs
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        return kernel(*inputs, **kwargs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        wanted = [i for i, t in enumerate(saved)
+                  if t is not None and ctx.needs_input_grad[3 + i]]
+        with torch.enable_grad(), torch.profiler.record_function(
+                f"plain_grad.{ctx.plain.__name__}"):
+            inputs = [None if t is None else t.detach().requires_grad_(i in wanted)
+                      for i, t in enumerate(saved)]
+            outs = ctx.plain(*inputs, **ctx.kwargs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs], [inputs[i] for i in wanted],
+                                      [g for _, g in pairs], allow_unused=True)
+        out = [None] * len(saved)
+        for i, g in zip(wanted, got):
+            out[i] = g
+        return (None, None, None, *out)

@@ -11,8 +11,9 @@ to the kernel as a scalar and only its valid range is split; a tensor
 ``cache_len`` of per-example lengths goes as a (B,) device tensor and
 S_max is split.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it computes the plain version, ``ref.decode_gqa``.  ``launches`` counts the
+On a CUDA tensor the wrapper launches the kernel or raises (also for a call
+that asks for a gradient: the kernel has no backward); on a CPU tensor it
+computes the plain version, ``ref.decode_gqa``.  ``launches`` counts the
 kernel launches this process made.
 """
 from __future__ import annotations
@@ -93,9 +94,16 @@ def split_plan(b: int, kv: int, length: int, most: int = MAX_SPLIT) -> tuple[int
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tensor:
     """q (B,H,D) x caches (B,S_max,KV,D) -> (B,H,D), masked to ``cache_len``
     (int, () or (B,)) valid entries; ``window > 0`` also masks entries
-    before ``cache_len - window``."""
+    before ``cache_len - window``.
+
+    The kernel has no backward: on the card a call that autograd would
+    record (grad mode on and an operand that requires grad) raises, rather
+    than return a tensor cut off from the graph."""
     if q.device.type == "cpu":
         return ref.decode_gqa(q, k_cache, v_cache, cache_len, window=window)
+    if ref.records(q, k_cache, v_cache):
+        raise RuntimeError("decode_attention: the kernel has no backward, and an operand "
+                           "requires grad; decode under torch.no_grad()")
     check_operands("decode_attention", {"q": q, "k_cache": k_cache, "v_cache": v_cache})
     b, h, d = q.shape
     s_max, kv = k_cache.shape[1], k_cache.shape[2]

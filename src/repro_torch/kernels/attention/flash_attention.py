@@ -10,7 +10,10 @@ product would miss float32's tolerance.  Each route launches its kernel or
 raises; neither falls back to the other or to the plain version.
 
 On a CPU tensor the wrapper computes the plain version, ``ref.flash_plain``.
-``launches`` counts the kernel launches this process made.
+On the card the kernel's output carries the plain version's gradient
+(``_common.PlainGrad``), so training runs the kernel in every forward.
+``launches`` counts the kernel launches this process made, those of a
+recomputed forward (``torch.utils.checkpoint``) too.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import raise_on_error, stream_handle
+from repro_torch.kernels._common import PlainGrad, raise_on_error, stream_handle
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention._common import check_operands
 
@@ -51,9 +54,19 @@ def _kernel(name: str):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
-    """q (B,S_q,H,D), k/v (B,S_kv,KV,D) -> (B,S_q,H,D) in q's dtype."""
+    """q (B,S_q,H,D), k/v (B,S_kv,KV,D) -> (B,S_q,H,D) in q's dtype.
+
+    On the card the kernel computes the output and autograd differentiates
+    it with the plain version's backward (``_common.PlainGrad``: recomputed
+    from q, k and v; there is no backward kernel)."""
+    kwargs = {"causal": causal, "window": window, "q_offset": q_offset}
     if q.device.type == "cpu":
-        return ref.flash_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return ref.flash_plain(q, k, v, **kwargs)
+    return PlainGrad.apply(_launch, ref.flash_plain, kwargs, q, k, v)
+
+
+def _launch(q, k, v, *, causal: bool, window: int, q_offset: int) -> torch.Tensor:
+    """One launch of the kernel for ``route(q.dtype)``."""
     check_operands("flash_attention", {"q": q, "k": k, "v": v})
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]

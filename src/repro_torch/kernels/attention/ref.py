@@ -11,10 +11,12 @@ Decode:
 window=0`` = bidirectional (encoder) or cross attention.  GQA is a grouped
 einsum (q reshaped to (B,S,KV,G,D)); K/V are never repeated.  The rounding
 points follow the reference: logits in the inputs' common type, softmax in
-float32, probabilities cast to v's type before the value product.  The
-float32 logits are masked and normalized in place (the values are the
-reference's): at a long prompt they are the largest tensor, 8.6 GB for
-mixtral-8x7b's 32 heads at 8192 tokens.
+float32, probabilities cast to v's type before the value product.  Where
+autograd records nothing (serving), the float32 logits are masked and
+normalized in place (the values are the reference's): at a long prompt they
+are the largest tensor, 8.6 GB for mixtral-8x7b's 32 heads at 8192 tokens.
+Where it records (training), the softmax makes new tensors, with the same
+values, so that its backward finds what it saved.
 
 ``flash_plain`` is the plain route of ``ops.flash_attention``: the banded
 form where the reference's dispatch picks it, ``mha`` elsewhere.
@@ -45,13 +47,25 @@ def attention_mask(s_q: int, s_kv: int, *, causal: bool, window: int = 0,
     return mask
 
 
-def _masked_softmax_(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_softmax_(logits: torch.Tensor, mask: torch.Tensor, *, record: bool) -> torch.Tensor:
     """The reference's float32 softmax, exp(x - max) / sum, of ``logits``
-    where ``mask`` holds and NEG_INF where it does not, computed in the
-    float32 ``logits`` tensor itself."""
+    where ``mask`` holds and NEG_INF where it does not.  Computed in the
+    float32 ``logits`` tensor itself unless autograd ``record``s the call:
+    ``amax`` and ``exp`` keep what the in-place steps would overwrite, so
+    then every step makes a new tensor.  The two forms run the same
+    operations and give the same bits."""
+    if record:
+        x = logits.masked_fill(~mask, NEG_INF)
+        e = (x - x.amax(dim=-1, keepdim=True)).exp()
+        return e / e.sum(dim=-1, keepdim=True)
     logits.masked_fill_(~mask, NEG_INF)
     logits.sub_(logits.amax(dim=-1, keepdim=True)).exp_()
     return logits.div_(logits.sum(dim=-1, keepdim=True))
+
+
+def records(*tensors) -> bool:
+    """Whether autograd records an operation on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _logits_f32(eq: str, q, k, d: int) -> torch.Tensor:
@@ -68,7 +82,7 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0) -> 
     logits = _logits_f32("bqngd,bknd->bngqk", q.reshape(b, s_q, kv, g, d), k, d)
     mask = attention_mask(s_q, s_kv, causal=causal, window=window,
                           q_offset=q_offset, device=q.device)
-    probs = _masked_softmax_(logits, mask)
+    probs = _masked_softmax_(logits, mask, record=records(q, k, v))
     out = torch.einsum("bngqk,bknd->bqngd", probs.to(v.dtype), v)
     return out.reshape(b, s_q, h, d).to(q.dtype)
 
@@ -104,7 +118,8 @@ def mha_banded(q, k, v, *, window: int) -> torch.Tensor:
     # current block: causal (k > q - w holds within a block)
     mask = torch.cat([kj > qi, kj <= qi], dim=1)[None].repeat(nb, 1, 1)
     mask[0, :, :w] = False
-    p_prev, p_cur = _masked_softmax_(logits, mask[None, :, None, None]).to(v.dtype).split(w, -1)
+    probs = _masked_softmax_(logits, mask[None, :, None, None], record=records(q, k, v))
+    p_prev, p_cur = probs.to(v.dtype).split(w, -1)
     v_prev, v_cur = prev_and_cur(v)
     out = torch.einsum("bcngqk,bcknd->bcqngd", p_cur, v_cur)
     out = out + torch.einsum("bcngqk,bcknd->bcqngd", p_prev, v_prev)
@@ -148,6 +163,7 @@ def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tens
     valid = pos < cache_len[:, None]
     if window > 0:
         valid &= pos >= (cache_len[:, None] - window)
-    probs = _masked_softmax_(logits, valid[:, None, None, :])
+    probs = _masked_softmax_(logits, valid[:, None, None, :],
+                             record=records(q, k_cache, v_cache))
     out = torch.einsum("bngk,bknd->bngd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, h, d).to(q.dtype)

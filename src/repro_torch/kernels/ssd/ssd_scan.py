@@ -13,8 +13,10 @@ its kernel or raises; neither falls back to the other or to the plain
 version.
 
 On a CPU tensor the wrapper computes the plain version, ``ref.ssd_chunked``.
-``launches`` counts the calls that launched a kernel in this process (one
-per call on either route).
+On the card the kernel's outputs carry the plain version's gradient
+(``_common.PlainGrad``).  ``launches`` counts the calls that launched a
+kernel in this process (one per call on either route), those of a
+recomputed forward (``torch.utils.checkpoint``) too.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES, raise_on_error, stream_handle
+from repro_torch.kernels._common import DTYPE_CODES, PlainGrad, raise_on_error, stream_handle
 from repro_torch.kernels.ssd import ref
 
 HEAD_DIMS = (16, 32, 64)   # P
@@ -129,12 +131,22 @@ def _check(x, dt, A, Bm, Cm, D, h0, chunk):
 
 def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
     """x (B,S,H,P), dt (B,S,H), A/D (H,), Bm/Cm (B,S,N) single group,
-    optional h0 (B,H,P,N) -> (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) f32)."""
+    optional h0 (B,H,P,N) -> (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) f32).
+
+    On the card the kernel computes both outputs and autograd
+    differentiates them with ``ref.ssd_chunked``'s backward
+    (``_common.PlainGrad``: recomputed from the inputs; there is no backward
+    kernel), for x, dt, A, Bm, Cm, D and h0."""
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)
     # The reference kernel's casts (ssd_scan.py:128-131); h0 is float32 too.
     dt, A, D = dt.float(), A.float(), D.float()
     h0 = None if h0 is None else h0.float()
+    return PlainGrad.apply(_launch, ref.ssd_chunked, {"chunk": chunk}, x, dt, A, Bm, Cm, D, h0)
+
+
+def _launch(x, dt, A, Bm, Cm, D, h0, *, chunk: int):
+    """One call of the kernel for ``plan``'s route."""
     _check(x, dt, A, Bm, Cm, D, h0, chunk)
     b, s, h, p = x.shape
     n = Bm.shape[-1]

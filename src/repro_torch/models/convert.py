@@ -70,3 +70,14 @@ def _unstack(stacked: dict, n: int, device) -> list:
     if sizes != {n}:
         raise ValueError(f"stacked blocks with leading axes {sorted(sizes)}, expected {n}")
     return [tree_map(lambda x, i=i: _tensor(x[i], device), stacked) for i in range(n)]
+
+
+def opt_state_from_numpy(opt_state: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """Reference optimizer state (``{"m", "v", "step"}``, numpy leaves) -> the
+    port's: m and v carried as ``params_from_numpy`` carries the parameters
+    (float32 trees), the step as an int32 tensor, on ``device``."""
+    device = resolve_device(device)
+    return {"m": params_from_numpy(opt_state["m"], cfg, device),
+            "v": params_from_numpy(opt_state["v"], cfg, device),
+            "step": torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32,
+                                 device=device)}

@@ -6,6 +6,8 @@ precomputed frame embeddings (B, S_enc, d_model).  Encoder blocks are
 bidirectional self-attention + FFN; decoder blocks add causal
 self-attention with a KV cache plus cross attention against the encoder's
 output, whose K/V are projected once per request and kept in the cache.
+``forward_train`` is the training loss, each block recomputed in the
+backward under ``cfg.remat`` as the reference's ``jax.checkpoint`` does.
 Every attention goes through the kernel dispatch: the encoder and the
 cross attention as flash attention with ``causal=False`` (at S_q = 1 in
 decode), the decoder's self-attention as flash in the prompt and as the
@@ -25,6 +27,7 @@ from repro_torch.models import layers
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import decl
+from repro_torch.models.transformer import rematerialized
 
 
 def _enc_block_decls(cfg: ModelConfig):
@@ -62,16 +65,52 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def encode(params, frame_embeds: torch.Tensor, cfg: ModelConfig, impl=None) -> torch.Tensor:
-    """frame_embeds (B, S_enc, D) -> encoder output (B, S_enc, D)."""
+    """frame_embeds (B, S_enc, D) -> encoder output (B, S_enc, D).  In a
+    training forward each block is rematerialized under ``cfg.remat``."""
     b, s, _ = frame_embeds.shape
     positions = _positions(b, s, frame_embeds.device)
-    x = frame_embeds.to(params["enc_norm"]["scale"].dtype)
-    for p in params["enc_blocks"]:
+
+    def block(x, p):
         h, _ = attn.self_attention(layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
                                    positions, causal=False, impl=impl)
         x = x + h
-        x = x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.ffn_type)
+        return x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
+                              cfg.ffn_type)
+
+    x = frame_embeds.to(params["enc_norm"]["scale"].dtype)
+    for p in params["enc_blocks"]:
+        x = rematerialized(block, cfg)(x, p)
     return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block(x, enc_out, p, cfg: ModelConfig, positions, impl):
+    """One decoder block over the whole sequence: (x, (k, v), (cross k, v))."""
+    h, kv = attn.self_attention(layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["self_attn"],
+                                cfg, positions, causal=True, impl=impl)
+    x = x + h
+    ckv = attn.cross_kv(enc_out, p["cross_attn"], cfg)
+    x = x + attn.cross_attention(layers.rms_norm(x, p["ln_x"], cfg.norm_eps), ckv,
+                                 p["cross_attn"], cfg, impl=impl)
+    x = x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.ffn_type)
+    return x, kv, ckv
+
+
+def forward_train(params, batch, cfg: ModelConfig, aux_weight: float = 0.0, impl=None):
+    """batch: frontend_embeds (B, S_enc, D), tokens (B, S_dec), labels ->
+    (loss, {"ce", "aux"}); the family has no aux loss.  Each decoder block is
+    rematerialized under ``cfg.remat``."""
+    enc_out = encode(params, batch["frontend_embeds"], cfg, impl)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = layers.embed(tokens, params["embed"])
+    positions = _positions(b, s, x.device)
+    block = rematerialized(lambda xx, eo, p: _dec_block(xx, eo, p, cfg, positions, impl)[0],
+                           cfg)
+    for p in params["dec_blocks"]:
+        x = block(x, enc_out, p)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = layers.cross_entropy_loss(layers.unembed(x, params["embed"]), batch["labels"])
+    return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
 
 def cache_decls(cfg: ModelConfig, batch: int, max_len: int, enc_len: int) -> dict:
@@ -101,13 +140,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl=None):
     positions = _positions(b, s, x.device)
     caches = {"self": [], "cross_k": [], "cross_v": []}
     for p in params["dec_blocks"]:
-        h, (k, v) = attn.self_attention(layers.rms_norm(x, p["ln1"], cfg.norm_eps),
-                                        p["self_attn"], cfg, positions, causal=True, impl=impl)
-        x = x + h
-        ck, cv = attn.cross_kv(enc_out, p["cross_attn"], cfg)
-        x = x + attn.cross_attention(layers.rms_norm(x, p["ln_x"], cfg.norm_eps), (ck, cv),
-                                     p["cross_attn"], cfg, impl=impl)
-        x = x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.ffn_type)
+        x, (k, v), (ck, cv) = _dec_block(x, enc_out, p, cfg, positions, impl)
         caches["self"].append({"k": _pad_to(k, max_len), "v": _pad_to(v, max_len)})
         caches["cross_k"].append(ck)
         caches["cross_v"].append(cv)

@@ -121,3 +121,16 @@ def unembed(x: torch.Tensor, p) -> torch.Tensor:
     if w is None:
         w = p["embedding"].T
     return x @ w
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in float32; positions with label < 0 are masked
+    (port of the reference's ``cross_entropy_loss``, which also takes the
+    vocabulary size and does not use it)."""
+    logits = logits.float()
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

@@ -1,7 +1,7 @@
 """Model API (port of ``repro/models/model.py``).
 
 ``build_model(cfg)`` returns a ``ModelApi`` with the entry points the
-serving engine uses: the enc-dec family through ``models/encdec.py``, every
+trainer and the serving engine use: the enc-dec family through ``models/encdec.py``, every
 other family (dense, MoE, ssm, hybrid) through ``models/transformer.py``.
 """
 from __future__ import annotations
@@ -23,6 +23,7 @@ ENC_LEN_DECODE = 4_096
 class ModelApi:
     cfg: ModelConfig
     param_decls: dict
+    train_loss: Callable    # (params, batch, impl=None) -> (loss, {"ce", "aux"})
     prefill: Callable       # (params, batch, max_len, impl=None) -> (logits, caches)
     decode_step: Callable   # (params, caches, token, pos, max_len, impl=None) -> (logits, caches)
     cache_decls: Callable   # (batch, max_len) -> decl tree
@@ -37,6 +38,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         return ModelApi(
             cfg=cfg,
             param_decls=encdec.model_decls(cfg),
+            train_loss=lambda p, b, impl=None: encdec.forward_train(p, b, cfg, impl=impl),
             prefill=lambda p, b, max_len, impl=None: encdec.prefill(p, b, cfg, max_len, impl),
             decode_step=lambda p, c, t, pos, max_len, impl=None: encdec.decode_step(
                 p, c, t, pos, cfg, max_len, impl),
@@ -46,6 +48,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         param_decls=transformer.model_decls(cfg),
+        train_loss=lambda p, b, impl=None: transformer.forward_train(p, b, cfg, impl=impl),
         prefill=lambda p, b, max_len, impl=None: transformer.prefill(p, b, cfg, max_len, impl),
         decode_step=lambda p, c, t, pos, max_len, impl=None: transformer.decode_step(
             p, c, t, pos, cfg, max_len, impl),

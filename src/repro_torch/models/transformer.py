@@ -7,7 +7,8 @@ axis and scans over them, the port keeps one parameter dict per layer in a
 list, in the order the reference executes them: superblock 0's sub-blocks in
 pattern order, then superblock 1, ..., then the tail.  Layer i is of kind
 ``layer_kinds(cfg)[i]``, and the cache list follows the same order.
-Two entry points:
+Three entry points:
+  forward_train(params, batch)              -> (loss, {"ce", "aux"})
   prefill(params, batch, ...)               -> (logits_last, caches)
   decode_step(params, caches, token, pos)   -> (logits, caches)
 ``impl`` is passed to the kernel dispatch (``kernels/*/ops.py``): ``None``
@@ -15,13 +16,18 @@ on the main path, ``"ref"`` to run the plain versions for a comparison.
 
 An ``attn_moe`` block's prefill routes with ``cfg.moe_capacity_factor`` and
 its decode with a capacity factor of 2.0, as the reference's do
-(``repro/models/transformer.py:315``).  Its Switch aux loss is not returned:
-``prefill`` returns (logits, caches), as the reference's ``ModelApi`` does,
-and the loss waits for training (ROADMAP A8).
+(``repro/models/transformer.py:315``).  Its Switch aux loss is summed over
+the layers by ``forward_logits`` and weighted into the training loss;
+``prefill`` returns (logits, caches), as the reference's ``ModelApi`` does.
+
+With ``cfg.remat`` a training forward recomputes each superblock in the
+backward (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+around its scan body); the tail blocks keep their activations, as there.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, layers, moe, ssm
@@ -105,9 +111,10 @@ def _window_for(cfg: ModelConfig) -> int:
 
 
 def _block_fwd(kind: str, x, p, cfg: ModelConfig, positions, impl):
-    """Full-sequence forward of one block.  Returns (x, cache_seed): (k, v)
-    for the attention blocks, (conv_tail, final_state) for ``ssm`` and
-    ``rglru_mlp``."""
+    """Full-sequence forward of one block.  Returns (x, aux_loss, cache_seed):
+    the Switch aux loss of an ``attn_moe`` block (0.0 for the others), and
+    (k, v) for the attention blocks, (conv_tail, final_state) for ``ssm``
+    and ``rglru_mlp``."""
     if kind in ("attn_mlp", "attn_moe"):
         h, kv = attn.self_attention(
             layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg, positions,
@@ -116,20 +123,56 @@ def _block_fwd(kind: str, x, p, cfg: ModelConfig, positions, impl):
         x = x + h
         y = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         if kind == "attn_mlp":
-            return x + layers.ffn(y, p["mlp"], cfg.ffn_type), kv
-        mo, _aux = moe.moe_ffn(y, p["moe"], cfg, capacity_factor=cfg.moe_capacity_factor)
-        return x + mo, kv
+            return x + layers.ffn(y, p["mlp"], cfg.ffn_type), 0.0, kv
+        mo, aux = moe.moe_ffn(y, p["moe"], cfg, capacity_factor=cfg.moe_capacity_factor)
+        return x + mo, aux, kv
     if kind == "ssm":
         h, state = ssm.ssm_block(layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["ssm"], cfg,
                                  impl=impl)
-        return x + h, state
+        return x + h, 0.0, state
     if kind == "rglru_mlp":
         h, state = griffin.recurrent_block(layers.rms_norm(x, p["ln1"], cfg.norm_eps),
                                            p["rec"], cfg)
         x = x + h
         return x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
-                              cfg.ffn_type), state
+                              cfg.ffn_type), 0.0, state
     raise ValueError(kind)
+
+
+def rematerialized(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward when ``cfg.remat`` and autograd
+    records (``torch.utils.checkpoint``, non-reentrant); ``fn`` itself
+    otherwise.  Its kernels then launch again in the backward."""
+    def run(*args):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+    return run
+
+
+def _run_stack(x, blocks, cfg: ModelConfig, positions, impl):
+    """The training forward of the layer stack: each superblock (one repeat
+    of ``block_pattern``) rematerialized under ``cfg.remat``, then the tail.
+    Returns (x, the summed aux loss)."""
+    kinds = layer_kinds(cfg)
+    p = len(block_pattern(cfg))
+    n_super, _ = super_counts(cfg)
+
+    def superblock(xx, first: int):
+        aux = torch.zeros((), dtype=torch.float32, device=xx.device)
+        for i in range(p):
+            xx, a, _ = _block_fwd(kinds[first + i], xx, blocks[first + i], cfg, positions, impl)
+            aux = aux + a
+        return xx, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(n_super):
+        x, a = rematerialized(superblock, cfg)(x, j * p)
+        aux = aux + a
+    for i in range(n_super * p, len(kinds)):
+        x, a, _ = _block_fwd(kinds[i], x, blocks[i], cfg, positions, impl)
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +242,26 @@ def _seed_to_cache(kind: str, seed, spec: KVCacheSpec, s: int) -> dict:
 
 # -- entry points ------------------------------------------------------------
 
+def forward_logits(params, batch, cfg: ModelConfig, impl=None):
+    """Full-sequence logits (B, S, V) and the summed MoE aux loss."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = layers.embed(tokens, params["embed"])
+    x = _apply_frontend(x, batch)
+    positions = _positions(batch, cfg, b, s, x.device)
+    x, aux = _run_stack(x, params["blocks"], cfg, positions, impl)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return layers.unembed(x, params["embed"]), aux
+
+
+def forward_train(params, batch, cfg: ModelConfig, aux_weight: float = 0.01, impl=None):
+    """(loss, {"ce", "aux"}): next-token CE on ``batch["labels"]`` plus
+    ``aux_weight`` times the MoE aux loss."""
+    logits, aux = forward_logits(params, batch, cfg, impl)
+    loss = layers.cross_entropy_loss(logits, batch["labels"])
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
 def prefill(params, batch, cfg: ModelConfig, max_len: int, impl=None):
     """Full-sequence forward that also builds decode caches.
 
@@ -212,7 +275,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl=None):
     positions = _positions(batch, cfg, b, s, x.device)
     seeds = []
     for kind, p in zip(layer_kinds(cfg), params["blocks"], strict=True):
-        x, seed = _block_fwd(kind, x, p, cfg, positions, impl)
+        x, _aux, seed = _block_fwd(kind, x, p, cfg, positions, impl)
         seeds.append(_seed_to_cache(kind, seed, spec, s))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(x[:, -1:], params["embed"])[:, 0]

@@ -781,3 +781,121 @@ def test_encdec_model_through_the_kernels(card):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     assert _launches() == (before[0] + cfg.encoder_layers + 6 * cfg.num_layers,
                            before[1] + 4 * cfg.num_layers)
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash and SSD kernels inside autograd (their outputs carry
+# the plain versions' backward), the decode kernel refusing a gradient, and
+# a reduced train step on the card against the same step on the CPU.
+# ---------------------------------------------------------------------------
+
+def _grad_gap(kernel_out, plain_out, inputs, plain_inputs, cots):
+    """The largest gap per input between the Function's gradients and the
+    plain version's own, each over the plain gradient's max."""
+    got = torch.autograd.grad(kernel_out, inputs, cots)
+    want = torch.autograd.grad(plain_out, plain_inputs, cots)
+    return [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", [
+    (1, 77, 77, 4, 2, 32, True, 0, 0),
+    (2, 130, 200, 6, 2, 64, True, 0, 70),
+    (1, 300, 300, 8, 4, 128, True, 40, 0),
+    (3, 33, 65, 4, 4, 64, False, 0, 0),
+    (2, 128, 128, 16, 1, 256, True, 0, 0),
+])
+def test_flash_gradients_through_the_kernel(case, dtype, card):
+    """The cotangent is the same in both runs, so the gradients are the plain
+    version's own: only the order of its sums on the card may differ."""
+    b, s_q, s_kv, h, kv, d, causal, window, off = case
+    kw = dict(causal=causal, window=window, q_offset=off)
+    qkv = [_randn(card, shape, dtype) for shape in ((b, s_q, h, d), (b, s_kv, kv, d),
+                                                    (b, s_kv, kv, d))]
+    cot = _randn(card, (b, s_q, h, d), dtype)
+    leaves = [x.clone().requires_grad_() for x in qkv]
+    plain = [x.clone().requires_grad_() for x in qkv]
+    before = fa.launches
+    out = ops.flash_attention(*leaves, **kw)
+    assert fa.launches == before + 1 and out.grad_fn is not None
+    gaps = _grad_gap(out, ref.flash_plain(*plain, **kw), leaves, plain, cot)
+    assert fa.launches == before + 1
+    assert max(gaps) <= 1e-5, gaps
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("with_h0", [False, True], ids=["no_h0", "h0"])
+def test_ssd_gradients_through_the_kernel(with_h0, dtype, card):
+    b, s, h, p, n, chunk = 2, 200, 4, 32, 16, 64
+    x = (torch.randn((b, s, h, p), generator=card, device="cuda") * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=card, device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=card, device="cuda") * 0.3)
+    Bm, Cm = (_randn(card, (b, s, n), dtype) for _ in range(2))
+    D = torch.randn((h,), generator=card, device="cuda")
+    h0 = torch.randn((b, h, p, n), generator=card, device="cuda") if with_h0 else None
+    inputs = [t for t in (x, dt, A, Bm, Cm, D, h0) if t is not None]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    plain = [t.clone().requires_grad_() for t in inputs]
+    cots = [_randn(card, (b, s, h, p), dtype),
+            torch.randn((b, h, p, n), generator=card, device="cuda")]
+
+    def call(fn, args):
+        args = args + [None] * (7 - len(args))
+        return fn(*args[:6], h0=args[6], chunk=chunk)
+
+    before = ssd_scan.launches
+    out = call(ssd_ops.ssd, leaves)
+    assert ssd_scan.launches == before + 1
+    gaps = _grad_gap(list(out), list(call(ssd_ref.ssd_chunked, plain)), leaves, plain, cots)
+    assert len(gaps) == (7 if with_h0 else 6)
+    assert max(gaps) <= 1e-5, gaps
+
+
+def test_decode_kernel_refuses_a_gradient(card):
+    q = _randn(card, (2, 8, 64), torch.bfloat16).requires_grad_()
+    kc, vc = (_randn(card, (2, 96, 2, 64), torch.bfloat16) for _ in range(2))
+    before = da.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(q, kc, vc, 50)
+    with torch.no_grad():
+        ops.decode_attention(q, kc, vc, 50)
+    assert da.launches == before + 1
+    got = ops.decode_attention(q, kc, vc, 50, impl="ref")  # the plain version differentiates
+    assert got.grad_fn is not None
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-370m", "granite-moe-1b-a400m"])
+def test_train_step_on_the_card_matches_the_cpu(arch, card):
+    """One step of reduced ``build_train_step`` from the same float32 state on
+    the card (through the kernels) and on the CPU (the plain versions): the
+    metrics within 1e-4 relative; the parameters within 1% of the learning
+    rate wherever the CPU's gradient is above 1e-4 of its leaf's max (below,
+    Adam's normalised step can turn a rounding-sized gradient into ±lr)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import build_train_step
+
+    cfg = get_config(arch, reduced=True)
+    api = build_model(cfg)
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    raw = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 2, 0)).batch(0)
+    cpu = api.init(0, dtype=torch.float32, device="cpu")
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(cpu)]
+    it = iter(leaves)
+    batch = {k: torch.from_numpy(v).long() for k, v in raw.items()}
+    grads = torch.autograd.grad(api.train_loss(tree_map(lambda _: next(it), cpu), batch)[0],
+                                leaves)
+    gpu = tree_map(lambda p: p.to("cuda"), cpu)
+    step = build_train_step(api, ocfg)
+    cpu, _, m_cpu = step(cpu, opt.init_opt_state(cpu), batch)
+    launches = (fa.launches, ssd_scan.launches)
+    gpu, _, m_gpu = step(gpu, opt.init_opt_state(gpu), {k: v.cuda() for k, v in batch.items()})
+    kernel = 1 if cfg.arch_type == "ssm" else 0
+    assert (fa.launches, ssd_scan.launches)[kernel] == launches[kernel] + 2 * cfg.num_layers
+    for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4, atol=1e-6)
+    for g, a, b in zip(grads, tree_leaves(cpu), tree_leaves(gpu)):
+        held = g.abs() > 1e-4 * g.abs().max()
+        torch.testing.assert_close(b.cpu()[held], a[held], atol=1e-2 * ocfg.lr, rtol=0)
