@@ -134,6 +134,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    optimizer's, and the logits and CE timed alone at the step's shapes).
    A ``time`` line after each group of phases gives the script's time so
    far.
+8. Roofline (``phase_roofline``): the card as ``launch/mesh.py`` reads it
+   (name, memory, SMs, the data sheet's peaks); the dry-run and the
+   roofline of every (arch, shape) pair of ``INPUT_SHAPES`` at published
+   widths on ``meta`` in ``ROOFLINE_WORKERS`` processes (one
+   ``roofline_pair`` line each: the terms, the bottleneck, peak GiB,
+   ``fits``, the largest batch that fits; artifacts under
+   ``experiments/*_torch``); the roofline of each step phases 6c and 7 timed
+   at its own shape, held at most ``ROOFLINE_SLACK`` times its device time, and
+   the dry-run's peak of each whole-model training step within
+   ``PEAK_RTOL`` of ``max_memory_allocated``; the Table I architectures'
+   derived (T, R, M) at ``decode_32k`` and at the engine's decode shape
+   beside the paper's Table I, and that fleet through ``simulate`` on the
+   card under four policies (``roofline_fleet`` lines).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -160,14 +173,6 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
-# (name, bytes/s, {dtype: flop/s}) per SKU, dense rates, from NVIDIA's data
-# sheets; the first entry whose key is in the nvidia-smi name applies.
-PEAKS = (
-    ("H200", 4.8e12, {torch.bfloat16: 989e12, torch.float32: 67e12}),
-    ("H100 PCIe", 2.0e12, {torch.bfloat16: 756e12, torch.float32: 51e12}),
-    ("H100 NVL", 3.9e12, {torch.bfloat16: 835e12, torch.float32: 60e12}),
-    ("H100", 3.35e12, {torch.bfloat16: 989e12, torch.float32: 67e12}),  # SXM
-)
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # The SSD scan's tolerances, tests/test_kernels.py:111.  At mamba2-370m's
 # widths |y| reaches ~100, where one bfloat16 step is 0.5: the kernel and
@@ -306,19 +311,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def peaks(gpu_name: str):
-    for key, bw, flops in PEAKS:
-        if key in gpu_name:
-            return key, bw, flops
-    raise RuntimeError(f"chip_smoke: no peak rates for {gpu_name!r}")
+def bound(gpu_name: str, cost) -> tuple[float, str]:
+    """Least time in ms of a kernel call's ``cost`` (its wrapper's ``cost``
+    function): the larger of its bytes over the memory rate and its
+    operations over the peak rate for the inputs' type, from the data-sheet
+    row of ``launch/mesh.py`` that the card's name matches."""
+    from repro_torch.launch import mesh
 
-
-def bound(gpu_name: str, bytes_moved: int, flops: int, dtype) -> tuple[float, str]:
-    """Least time in ms: the larger of bytes over the memory rate and
-    operations over the peak rate for the inputs' type."""
-    _, bw, rates = peaks(gpu_name)
-    t_bytes, t_ops = bytes_moved / bw * 1e3, flops / rates[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return mesh.bound_ms(cost, mesh.hw(gpu_name))
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +426,9 @@ def check_flash(case, dtype, gpu, seed=0) -> dict:
     err = float((got.float() - want.float()).abs().max())
     mask = ref.attention_mask(s_q, s_kv, causal=causal, window=window, q_offset=off, device=DEVICE)
     pairs = int(mask.sum())
+    counted = fa.pairs(s_q, s_kv, causal=causal, window=window, q_offset=off)
+    check(pairs == counted,
+          f"flash_attention {case}: cost counts {counted} pairs, the mask holds {pairs}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     # The plain causal mask goes to SDPA as is_causal (its fast kernels);
     # other masks as a boolean mask.
@@ -436,9 +439,10 @@ def check_flash(case, dtype, gpu, seed=0) -> dict:
         lib_args = {"mask": None if pairs == s_q * s_kv else mask}
     lib = _sdpa(qt, kt, vt, **lib_args)
     lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
-    flops = 4 * b * h * d * pairs
-    bms, by = bound(gpu, (2 * b * s_q * h + 2 * b * s_kv * kv) * d * q.element_size(),
-                    flops, dtype)
+    cost = fa.cost(b, s_q, s_kv, h, kv, d, causal=causal, window=window, q_offset=off,
+                   dtype=dtype)
+    flops = cost.flops[dtype]
+    bms, by = bound(gpu, cost)
     ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off))
     return {
         "kernel": "flash_attention", "case": list(case), "dtype": str(dtype).split(".")[-1],
@@ -469,11 +473,12 @@ def check_decode(case, dtype, gpu, seed=0) -> dict:
     if window > 0:
         valid &= pos >= clen - window
     n_valid = int(valid.sum())
+    begin, end = da.valid_range(clen, s_max, window)
+    check(end - begin == n_valid,
+          f"decode_attention {case}: cost counts {end - begin} entries, the mask holds {n_valid}")
     mask = valid[None, None, None, :].expand(b, 1, 1, s_max)
     qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    elem = q.element_size()
-    bms, by = bound(gpu, (2 * b * n_valid * kv * d + 2 * b * h * d) * elem + 4 * b,
-                    4 * b * h * d * n_valid, dtype)
+    bms, by = bound(gpu, da.cost(b, h, kv, d, s_max, clen, window=window, dtype=dtype))
     ms = time_ms(lambda: da.decode_attention(q, kc, vc, clen, window=window))
     return {
         "kernel": "decode_attention", "case": list(case), "dtype": str(dtype).split(".")[-1],
@@ -510,15 +515,9 @@ def check_ssd(case, dtype, gpu, seed=0) -> dict:
     rtol = SSD_WIDE_RTOL if case in SLICE_SSD else 0.0
     dy = (gy.float() - wy.float()).abs()
     excess = float((dy - rtol * wy.float().abs()).max())  # <= atol passes
-    elem = x.element_size()
-    bytes_moved = (2 * x.numel() * elem + dt.numel() * 4 + 2 * Bm.numel() * elem
-                   + (h0.numel() * 4 if with_h0 else 0) + gh.numel() * 4)
-    chunks = -(-s // chunk)
-    # C·Bᵀ once per (batch row, chunk): B and C are one group that all heads
-    # share; the gated products and the state's per head.
-    flops = (2 * chunk * chunk * n * b * chunks
-             + 2 * chunk * (chunk * p + 2 * n * p) * b * h * chunks)
-    bms, by = bound(gpu, bytes_moved, flops, dtype)
+    cost = ssd_scan.cost(b, s, h, p, n, chunk=chunk, h0=with_h0, dtype=dtype)
+    flops = cost.flops[dtype]
+    bms, by = bound(gpu, cost)
     pl = ssd_scan.plan(b, s, h, p, n, dtype)
     ms = time_ms(lambda: ssd_scan.ssd(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk))
     return {
@@ -533,12 +532,32 @@ def check_ssd(case, dtype, gpu, seed=0) -> dict:
     }
 
 
+def _device_session(fn, calls: int, sessions: int = 3) -> list:
+    """The device events of ``calls`` calls of ``fn`` in one
+    ``torch.profiler`` session (CUDA activity only).  A session that saw no
+    device event at all is taken again, up to ``sessions`` in all: the
+    profiler once dropped a whole session's device events on the card
+    (``check_ssd_launches``, three bf16 calls, 0 events), which says nothing
+    of the kernels; any event it does see is held by the caller's checks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+        print(f"profiler: no device event in a session of {calls} calls; taken again",
+              flush=True)
+    return events
+
+
 def check_ssd_launches(case=SUMMARY_SSD, calls: int = 3) -> dict:
     """A bf16 SSD call is one device kernel and allocates nothing but y and
     the final state; then the SSD device time of one full-width
     mamba2-370m prefill of ``case``'s length (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.models.model import build_model
@@ -554,11 +573,8 @@ def check_ssd_launches(case=SUMMARY_SSD, calls: int = 3) -> dict:
     allocated = torch.cuda.max_memory_allocated() - base
     outputs = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in out)  # allocator blocks
     del out
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in _device_session(lambda: ssd_scan.ssd(x, dt, A, Bm, Cm, D,
+                                                                  chunk=chunk), calls)]
     check(len(names) == calls and all("ssd_sm90_kernel" in nm for nm in names),
           f"ssd: {len(names)} device kernels for {calls} bf16 calls: {sorted(set(names))}")
     check(allocated <= outputs,
@@ -572,10 +588,7 @@ def check_ssd_launches(case=SUMMARY_SSD, calls: int = 3) -> dict:
     with torch.no_grad():
         api.prefill(params, {"tokens": tokens}, 1024)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            api.prefill(params, {"tokens": tokens}, 1024)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = _device_session(lambda: api.prefill(params, {"tokens": tokens}, 1024), 1)
     scans = [e for e in kernels if "ssd_sm90_kernel" in e.name]
     row = {"phase": "ssd_launches", "case": list(case), "calls": calls,
            "device_kernels": len(names), "names": sorted(set(names)),
@@ -594,8 +607,6 @@ def check_ssd_launches(case=SUMMARY_SSD, calls: int = 3) -> dict:
 def check_decode_launches(case=SUMMARY_DECODE, calls: int = 3) -> None:
     """A decode call with an int length is one device kernel: no fill of
     the lengths, no combine pass (``torch.profiler``'s device events)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.attention import decode_attention as da
 
     b, h, kv, d, s_max, clen, window = case
@@ -604,11 +615,8 @@ def check_decode_launches(case=SUMMARY_DECODE, calls: int = 3) -> None:
     kc, vc = (_randn(gen, (b, s_max, kv, d), torch.bfloat16) for _ in range(2))
     da.decode_attention(q, kc, vc, clen, window=window)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            da.decode_attention(q, kc, vc, clen, window=window)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in _device_session(
+        lambda: da.decode_attention(q, kc, vc, clen, window=window), calls)]
     emit({"phase": "decode_launches", "case": list(case), "calls": calls,
           "device_kernels": len(names), "names": sorted(set(names))})
     check(len(names) == calls and all("repro::" in n and "decode_" in n for n in names),
@@ -664,6 +672,14 @@ def _grad_gaps(out, want, inputs, plain_inputs, cots) -> list:
             for g, w in zip(got, ref_grads)]
 
 
+def _grad_bound(cost) -> tuple[float, str]:
+    """Least time in ms of a kernel call's forward and backward
+    (``Cost.with_backward``) on this card."""
+    from repro_torch.launch import mesh
+
+    return mesh.bound_ms(cost.with_backward(), mesh.hw())
+
+
 def check_flash_grad(case, dtype, timed: bool) -> dict:
     from repro_torch.kernels.attention import flash_attention as fa, ref
 
@@ -685,6 +701,8 @@ def check_flash_grad(case, dtype, timed: bool) -> dict:
     if timed:
         bhsd = [x.transpose(1, 2).detach().requires_grad_() for x in qkv]
         cot_t = cot.transpose(1, 2)
+        row["bound_ms"], row["bound_by"] = _grad_bound(fa.cost(
+            b, s_q, s_kv, h, kv, d, dtype=dtype, **kw))
         row.update({
             "kernel_fwd_plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
                 fa.flash_attention(*leaves, **kw), leaves, cot), iters=5, warmup=1),
@@ -742,6 +760,9 @@ def check_ssd_grad(case, dtype, timed: bool) -> dict:
            "plain_chunk_half_spread": yard if wide and dtype == torch.float32 else None,
            "grad_gap": dict(zip(names, gaps)), "rtol": GRAD_RTOL}
     if timed:
+        b, s, h, p, n = case[:5]
+        row["bound_ms"], row["bound_by"] = _grad_bound(ssd_scan.cost(
+            b, s, h, p, n, chunk=chunk, h0=with_h0, dtype=dtype))
         row.update({
             "kernel_fwd_plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
                 call(ssd_scan.ssd, leaves), leaves, cots), iters=5, warmup=1),
@@ -1855,13 +1876,9 @@ def _clone_tree(tree):
 
 def _loss_grads(api, params, batch, impl):
     """The gradient leaves of ``api.train_loss`` at ``params``."""
-    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.training.train_step import loss_and_grads
 
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    it = iter(leaves)
-    with torch.enable_grad():
-        loss, _ = api.train_loss(tree_map(lambda _: next(it), params), batch, impl=impl)
-        return torch.autograd.grad(loss, leaves)
+    return loss_and_grads(api, params, batch, impl)[2]
 
 
 def phase_train_compare(arch: str) -> dict:
@@ -1960,6 +1977,7 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import mesh
     from repro_torch.launch.train import opt_config
     from repro_torch.models.model import build_model
     from repro_torch.models.params import tree_leaves
@@ -1974,7 +1992,7 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
     state = init_opt_state(params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     flops = _train_flops(cfg, batch, seq, n_params - params["embed"]["embedding"].numel())
-    _, _, rates = peaks(gpu)
+    rates = mesh.hw(gpu)["peak_flops"]
     step = build_train_step(api, opt_config(TRAIN_LR, TRAIN_STEPS))
     data = SyntheticTokens(DataConfig(cfg.vocab_size, seq, batch, 0))
     name, module, per_step = _train_kernel(cfg)
@@ -1986,12 +2004,16 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         module.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
+        start.record()
         params, state, m = step(params, state, b)
+        end.record()
         torch.cuda.synchronize()
         s = time.perf_counter() - t
         row = {"phase": "train_step", "arch": arch, "step": i + 1,
-               **{k: float(v) for k, v in m.items()}, "s": s, "tokens_per_s": batch * seq / s,
+               **{k: float(v) for k, v in m.items()}, "s": s,
+               "device_ms": start.elapsed_time(end), "tokens_per_s": batch * seq / s,
                "launches": module.launches, "kernel": name,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "mfu": flops / s / rates[torch.bfloat16]}
@@ -2025,7 +2047,10 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
                "median_step_s": statistics.median(host),
                "median_tokens_per_s": batch * seq / statistics.median(host),
                "median_mfu": flops / statistics.median(host) / rates[torch.bfloat16],
-               "peak_gib": max(r["peak_gib"] for r in rows), "kernel": name,
+               "peak_gib": max(r["peak_gib"] for r in rows),
+               "median_peak_gib": statistics.median(r["peak_gib"] for r in rows),
+               "median_device_ms": statistics.median(r["device_ms"] for r in rows[1:]),
+               "kernel": name,
                "launches": sum(r["launches"] for r in rows)}
     emit(summary)
     check(all(math.isfinite(x) for x in losses), f"train {arch}: a loss is not finite")
@@ -2059,7 +2084,7 @@ def _logits_ce_ms(api, params, batch: int, seq: int) -> float:
         allow_unused=True), iters=3, warmup=1)
 
 
-def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> None:
+def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> dict:
     """One training step of a whole model in ``torch.profiler`` (after one
     outside it): the device time over the median host-clock step time of
     ``phase_train_whole`` (the busy share), and the device time of the kernel
@@ -2112,6 +2137,7 @@ def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> None:
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2168,7 +2194,7 @@ def time_decode_steps(models=PROFILED_MODELS, batch: int = 4, prompt_len: int = 
     return timed
 
 
-def profile_decode_step(state: dict, profiled: int = 5) -> None:
+def profile_decode_step(state: dict, profiled: int = 5) -> dict:
     """``profiled`` more decode steps of a ``time_decode_steps`` model in
     ``torch.profiler``: the device time (summed over every kernel) over the
     host-clock step time is the device's busy share of a step; and the
@@ -2186,14 +2212,17 @@ def profile_decode_step(state: dict, profiled: int = 5) -> None:
     host = state["host"]
     host_ms = statistics.median(host) * 1e3
     per_step = len(kernels) / profiled
-    emit({"phase": "profile", "arch": cfg.name, "layers": cfg.num_layers,
-          "batch": state["batch"], "cache_len": state["cache_len"],
-          "host_step_ms": host_ms, "host_step_ms_min": min(host) * 1e3,
-          "device_ms_per_step": device_ms, "busy_share": device_ms / host_ms,
-          "decode_attention_device_ms_per_step": decode_ms,
-          "device_kernels_per_step": per_step,
-          "device_kernels_per_layer": per_step / cfg.num_layers})
+    row = {"phase": "profile", "arch": cfg.name, "layers": cfg.num_layers,
+           "batch": state["batch"], "cache_len": state["cache_len"],
+           "pos_mid": state["pos"] + profiled // 2,  # the profiled steps' middle position
+           "host_step_ms": host_ms, "host_step_ms_min": min(host) * 1e3,
+           "device_ms_per_step": device_ms, "busy_share": device_ms / host_ms,
+           "decode_attention_device_ms_per_step": decode_ms,
+           "device_kernels_per_step": per_step,
+           "device_kernels_per_layer": per_step / cfg.num_layers}
+    emit(row)
     check(device_ms > 0, f"the profiler saw no device time in a {cfg.name} decode step")
+    return row
 
 
 def _device_events(prof) -> list:
@@ -2281,6 +2310,153 @@ def profile_rglru_scan(state: dict, prompt_len: int = 2048, calls: int = 3) -> N
     check(prefill_ms > 0 and linear_ms > 0, "the profiler saw no device time in the rglru scan")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the dry-run, the roofline and the derived agent profiles
+# ---------------------------------------------------------------------------
+
+ROOFLINE_WORKERS = 8      # processes for the meta runs (host-bound), one per core
+ROOFLINE_SLACK = 1.05     # no step beats its roofline: bound <= 1.05 x device time
+PEAK_RTOL = 0.20          # the dry-run's training peak against max_memory_allocated
+# examples/profile_driven_fleet.py's architectures and priorities
+FLEET_ARCHS = {"qwen2-vl-2b": 1, "granite-8b": 2, "mixtral-8x7b": 2, "llama3-405b": 1}
+FLEET_POLICIES = ("static_equal", "round_robin", "adaptive", "water_filling")
+FLEET_STEPS = 100
+
+
+def _write_artifact(root: Path, res: dict) -> None:
+    from repro_torch.launch import mesh
+
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / f"{res['arch']}_{res['shape']}_{mesh.TAG}.json", "w") as f:
+        json.dump(res, f, indent=1)
+
+
+def phase_roofline(decode_rows: list, prefill_row: dict, train_rows: list,
+                   trained: dict) -> None:
+    """(a) The card as ``launch/mesh.py`` reads it.  (b) The dry-run and
+    the roofline of every (arch, shape) pair at published widths on meta,
+    in ``ROOFLINE_WORKERS`` processes, written to ``experiments/*_torch``;
+    one ``roofline_pair`` line each; every applicable pair must finish.
+    (c) The roofline of each step timed on the device, at its own shape,
+    against that device time (no step beats its bound): phase 7's profiled
+    decode steps and mamba prefill, phase 6c's training steps (CUDA events);
+    and the dry-run's peak of each whole-model training step against the
+    card's ``max_memory_allocated``.  (d) The Table I architectures' (T, R, M) at
+    ``decode_32k`` and at the engine's decode shape beside the paper's
+    Table I, and the fleet derived at the engine's shape through
+    ``simulate`` on the card under four policies."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.core import paper_fleet, profiles, workload
+    from repro_torch.core.simulator import run_policy
+    from repro_torch.launch import dryrun, mesh, roofline
+    from repro_torch.models.model import INPUT_SHAPES, InputShape
+
+    t0 = time.perf_counter()
+    card = mesh.hw()
+    emit({"phase": "roofline_hw", "name": card["name"], "sku": card["sku"],
+          "hbm_gib": card["hbm_bytes"] / 2**30, "sms": card["sms"],
+          "hbm_bw": card["hbm_bw"],
+          "peak_flops": {dryrun.dtype_name(dt): f for dt, f in card["peak_flops"].items()}})
+    check(card["from_device"] and card["sms"] > 0, f"mesh.hw() did not read the card: {card}")
+
+    pairs = [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES]
+    pairs += [(a, profiles.ENGINE_DECODE) for a in FLEET_ARCHS]
+    timed = []  # (label, roofline call, the device ms it is held against)
+    for row in decode_rows:
+        shape = InputShape(f"decode_{row['batch']}x1024", 1024, row["batch"], "decode")
+        timed.append((f"{row['arch']} decode, {row['layers']} layers, pos {row['pos_mid']}",
+                      (roofline.run_one, (row["arch"], shape),
+                       {"card": card, "num_layers": row["layers"], "pos": row["pos_mid"]}),
+                      row["device_ms_per_step"]))
+    prefill = InputShape(f"prefill_{prefill_row['prefill_tokens']}",
+                         prefill_row["prefill_tokens"], 1, "prefill")
+    timed.append((f"mamba2-370m prefill of {prefill.seq_len} tokens",
+                  (roofline.run_one, ("mamba2-370m", prefill), {"card": card}),
+                  prefill_row["prefill_device_ms"]))
+    # A training step keeps the card busy (94-99.7%), so its device time is
+    # read from CUDA events around each step of phase 6c (the median of steps
+    # 2-20): one profiled step once reported half its kernels' time.
+    train_shapes = {}
+    for row in train_rows:
+        shape = InputShape(f"train_{row['batch']}x{row['seq']}", row["seq"], row["batch"], "train")
+        train_shapes[row["arch"]] = shape
+        timed.append((f"{row['arch']} training step {row['batch']} x {row['seq']}",
+                      (roofline.run_one, (row["arch"], shape), {"card": card}),
+                      trained[row["arch"]]["median_device_ms"]))
+    also = [(roofline.run_one, pair, {"card": card}) for pair in pairs]
+    also += [call for _, call, _ in timed]
+    also += [(dryrun.measure_arch, (arch, shape), {}) for arch, shape in train_shapes.items()]
+    dry, done = dryrun.run_all(pairs, card, ROOFLINE_WORKERS, also)
+    roofs, done = done[:len(pairs)], done[len(pairs):]
+    bounds, peaks = done[:len(timed)], done[len(timed):]
+    pool_s = time.perf_counter() - t0
+
+    # (b)
+    for d, r in zip(dry, roofs):
+        if "skipped" in d:
+            emit({"phase": "roofline_pair", "arch": d["arch"], "shape": d["shape"],
+                  "skipped": d["skipped"]})
+            continue
+        check("error" not in d and "error" not in r,
+              f"roofline {d['arch']} {d['shape']}: {d.get('error') or r.get('error')}")
+        _write_artifact(ROOT / "experiments" / "dryrun_torch", d)
+        _write_artifact(ROOT / "experiments" / "roofline_torch", r)
+        emit({"phase": "roofline_pair", "arch": d["arch"], "shape": d["shape"],
+              "terms_s": r["roofline_s"], "bottleneck": r["bottleneck"],
+              "dryrun_terms_s": d["roofline_s"],
+              "peak_gib": d["per_device"]["peak_bytes"] / 2**30, "fits": d["fits"],
+              "max_batch": d["max_batch"], "useful_flops_ratio": r["useful_flops_ratio"],
+              "kernel_calls": d["per_device"]["kernel_calls"]})
+    applicable = sum("roofline_s" in d for d in dry)
+
+    # (c)
+    for (label, _, device_ms), r in zip(timed, bounds):
+        check("error" not in r, f"roofline {label}: {r.get('error')}")
+        bound_ms = max(r["roofline_s"].values()) * 1e3
+        emit({"phase": "roofline_bound", "step": label, "bound_ms": bound_ms,
+              "bound_by": r["bottleneck"], "terms_ms": {k: v * 1e3 for k, v in
+                                                        r["roofline_s"].items()},
+              "device_ms": device_ms, "share": bound_ms / device_ms})
+        check(bound_ms <= ROOFLINE_SLACK * device_ms,
+              f"{label}: the roofline's {bound_ms} ms exceeds the device's {device_ms} ms")
+    for (arch, shape), m in zip(train_shapes.items(), peaks):
+        check("error" not in m, f"dry-run {arch} {shape.name}: {m.get('error')}")
+        dry_gib, card_gib = m["peak_bytes"] / 2**30, trained[arch]["median_peak_gib"]
+        emit({"phase": "roofline_peak", "arch": arch, "shape": shape.name,
+              "dryrun_peak_gib": dry_gib, "max_memory_allocated_gib": card_gib,
+              "rel_gap": dry_gib / card_gib - 1})
+        check(abs(dry_gib / card_gib - 1) <= PEAK_RTOL,
+              f"{arch}: dry-run peak {dry_gib} GiB, the card's {card_gib} GiB")
+
+    # (d)
+    roots = {"root": str(ROOT / "experiments" / "roofline_torch"),
+             "dryrun_root": str(ROOT / "experiments" / "dryrun_torch")}
+    paper = paper_fleet()
+    table_i = [{"name": n, "model_mb": float(m), "throughput": float(t), "min_gpu": float(g),
+                "priority": float(p)} for n, m, t, g, p in zip(
+                    paper.names, paper.model_size_mb, paper.base_throughput, paper.min_gpu,
+                    paper.priority)]
+    for shape in ("decode_32k", profiles.ENGINE_DECODE):
+        derived = [profiles.profile_arch(a, shape=shape, **roots) for a in FLEET_ARCHS]
+        check(all(p is not None for p in derived), f"no profile at {shape}")
+        emit({"phase": "roofline_profiles",
+              "shape": shape if isinstance(shape, str) else shape.name,
+              "derived": derived, "table_i": table_i})
+    fleet = profiles.fleet_from_archs(FLEET_ARCHS, shape=profiles.ENGINE_DECODE, **roots)
+    fleet.validate()
+    arrivals = workload.constant([t * 0.75 for t in fleet.base_throughput.tolist()], FLEET_STEPS)
+    for policy in FLEET_POLICIES:
+        summary = run_policy(policy, arrivals, fleet, device=DEVICE)
+        emit({"phase": "roofline_fleet", "shape": profiles.ENGINE_DECODE.name,
+              "policy": policy, "steps": FLEET_STEPS, "avg_latency": summary.avg_latency,
+              "total_throughput": summary.total_throughput})
+        check(math.isfinite(summary.avg_latency) and summary.total_throughput > 0,
+              f"derived fleet under {policy}: {summary}")
+    emit({"phase": "roofline_summary", "pairs": len(dry), "applicable": applicable,
+          "skipped": len(dry) - applicable, "timed_steps": len(timed), "pool_s": pool_s,
+          "s": time.perf_counter() - t0})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2351,16 +2527,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     granite, mixtral = time_decode_steps()
-    profile_decode_step(granite)
+    decode_rows = [profile_decode_step(granite)]
     check_decode_launches()
-    check_ssd_launches()
-    profile_decode_step(mixtral)
+    ssd_row = check_ssd_launches()
+    decode_rows.append(profile_decode_step(mixtral))
     del granite, mixtral
     gc.collect()
     torch.cuda.empty_cache()
     rgemma = time_decode_steps([PROFILED_HYBRID], steps=2)[0]
     rgemma["host"] = hybrid_host  # the host clock read before any profile
-    profile_decode_step(rgemma)
+    decode_rows.append(profile_decode_step(rgemma))
     profile_layer_kinds(rgemma)
     profile_rglru_scan(rgemma)
     del rgemma
@@ -2369,9 +2545,11 @@ def main() -> None:
     profile_simulator(sim_walls["adaptive"])
     profile_sweep(sweep_walls["table2"])
     lap("profiles")
-    for arch, batch, seq in TRAIN_WHOLE:
-        profile_train_step(arch, batch, seq, trained[arch]["median_step_s"])
+    train_rows = [profile_train_step(arch, batch, seq, trained[arch]["median_step_s"])
+                  for arch, batch, seq in TRAIN_WHOLE]
     lap("train_profiles")
+    phase_roofline(decode_rows, ssd_row, train_rows, trained)
+    lap("roofline")
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",

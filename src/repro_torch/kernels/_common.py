@@ -11,8 +11,16 @@ the tests) pass it.
 ``PlainGrad`` puts a kernel call into autograd: the kernel computes the
 forward, and the backward is the plain version's own (recomputed from the
 saved inputs), since the reference has no backward kernel.
+
+On a ``meta`` tensor a wrapper launches nothing: it propagates the kernel's
+output shapes and hands the call's ``Cost`` (the one count of its work, the
+wrapper's ``cost`` function) to every counter that ``counting_costs`` has
+opened (``launch/dryrun.py``).  Its launch count does not move.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import torch
 
@@ -28,6 +36,41 @@ def use_kernel(x: torch.Tensor, impl) -> bool:
             f"impl='cuda' asks for the CUDA kernel, but the tensors are on {x.device}"
         )
     return impl != "ref"
+
+
+@dataclasses.dataclass(frozen=True)
+class Cost:
+    """The least work of one kernel call: the operations of its products by
+    the inputs' dtype, and the bytes it must move (each input read once,
+    each output written once)."""
+    flops: dict[torch.dtype, float]
+    bytes: int
+
+    def with_backward(self) -> "Cost":
+        """The least work of this call and its backward: each product of
+        the forward has two in the backward (one per operand), and the
+        backward reads the outputs' cotangents and writes the inputs'
+        gradients, the forward's bytes once more."""
+        return Cost({dt: 3 * f for dt, f in self.flops.items()}, 2 * self.bytes)
+
+
+_cost_counters: list = []
+
+
+@contextlib.contextmanager
+def counting_costs(counter):
+    """Within the block, ``counter.add_kernel(name, cost)`` takes the work
+    of every kernel call on ``meta`` tensors."""
+    _cost_counters.append(counter)
+    try:
+        yield counter
+    finally:
+        _cost_counters.remove(counter)
+
+
+def count_meta_call(name: str, cost: Cost) -> None:
+    for counter in _cost_counters:
+        counter.add_kernel(name, cost)
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -8,13 +8,14 @@ from repro_torch.kernels._common import DTYPE_CODES
 HEAD_DIMS = (32, 64, 128, 256)
 
 
-def check_operands(name: str, tensors: dict[str, torch.Tensor]) -> None:
-    """Raise unless every tensor is a CUDA tensor of one supported dtype on
-    one device, with a contiguous last dimension and 16-byte aligned rows
-    (the kernels read rows with 16-byte vector loads)."""
+def check_operands(name: str, tensors: dict[str, torch.Tensor], device_type: str = "cuda") -> None:
+    """Raise unless every tensor is a ``device_type`` tensor (CUDA for a
+    launch, ``meta`` for the meta route) of one supported dtype on one
+    device, with a contiguous last dimension and 16-byte aligned rows (the
+    kernels read rows with 16-byte vector loads)."""
     first = next(iter(tensors.values()))
     for arg, t in tensors.items():
-        if t.device.type != "cuda":
+        if t.device.type != device_type:
             raise ValueError(f"{name}: {arg} is on {t.device}, the kernel needs a CUDA tensor")
         if t.device != first.device:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {first.device}")

@@ -13,8 +13,10 @@ S_max is split.
 
 On a CUDA tensor the wrapper launches the kernel or raises (also for a call
 that asks for a gradient: the kernel has no backward); on a CPU tensor it
-computes the plain version, ``ref.decode_gqa``.  ``launches`` counts the
-kernel launches this process made.
+computes the plain version, ``ref.decode_gqa``; on ``meta`` tensors it
+checks the operands as for a launch, returns the output's shape and counts
+``cost`` (``_common.count_meta_call``).  ``launches`` counts the kernel
+launches this process made.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES, raise_on_error, stream_handle
+from repro_torch.kernels._common import (DTYPE_CODES, Cost, count_meta_call, raise_on_error,
+                                         stream_handle)
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention._common import check_operands
 
@@ -91,6 +94,17 @@ def split_plan(b: int, kv: int, length: int, most: int = MAX_SPLIT) -> tuple[int
     return chunk, max(1, math.ceil(length / chunk))
 
 
+def cost(b: int, h: int, kv: int, d: int, s_max: int, cache_len: int, *, window: int,
+         dtype: torch.dtype) -> Cost:
+    """One call's least work over the ``valid_range`` entries: the two
+    products, 4·B·H·D per entry; those entries of K and V, q, the output and
+    the (B,) int32 lengths read or written once."""
+    begin, end = valid_range(cache_len, s_max, window)
+    n = end - begin
+    return Cost({dtype: 4.0 * b * h * d * n},
+                (2 * b * n * kv * d + 2 * b * h * d) * dtype.itemsize + 4 * b)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tensor:
     """q (B,H,D) x caches (B,S_max,KV,D) -> (B,H,D), masked to ``cache_len``
     (int, () or (B,)) valid entries; ``window > 0`` also masks entries
@@ -104,7 +118,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torc
     if ref.records(q, k_cache, v_cache):
         raise RuntimeError("decode_attention: the kernel has no backward, and an operand "
                            "requires grad; decode under torch.no_grad()")
-    check_operands("decode_attention", {"q": q, "k_cache": k_cache, "v_cache": v_cache})
+    meta = q.device.type == "meta"
+    check_operands("decode_attention", {"q": q, "k_cache": k_cache, "v_cache": v_cache},
+                   "meta" if meta else "cuda")
     b, h, d = q.shape
     s_max, kv = k_cache.shape[1], k_cache.shape[2]
     if (k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[3] != d
@@ -115,6 +131,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torc
         raise ValueError(f"decode_attention: group {h // kv} > {MAX_GROUP}")
     if window < 0:
         raise ValueError(f"decode_attention: window={window}")
+    if meta:
+        # Lengths given as a tensor have no values on meta: every entry counts.
+        n = cache_len if isinstance(cache_len, int) else s_max
+        count_meta_call("decode_attention", cost(b, h, kv, d, s_max, n, window=window,
+                                                 dtype=q.dtype))
+        return torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         most = max_split(q.dtype, d, h // kv)
     if isinstance(cache_len, int):  # a scalar argument: no device tensor, no copy

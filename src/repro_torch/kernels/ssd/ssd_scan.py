@@ -14,9 +14,12 @@ version.
 
 On a CPU tensor the wrapper computes the plain version, ``ref.ssd_chunked``.
 On the card the kernel's outputs carry the plain version's gradient
-(``_common.PlainGrad``).  ``launches`` counts the calls that launched a
-kernel in this process (one per call on either route), those of a
-recomputed forward (``torch.utils.checkpoint``) too.
+(``_common.PlainGrad``).  On ``meta`` tensors it checks the operands as for
+a launch, returns the outputs' shapes and counts ``cost``
+(``_common.count_meta_call``), inside the same ``PlainGrad``.
+``launches`` counts the calls that launched a kernel in this process (one
+per call on either route), those of a recomputed forward
+(``torch.utils.checkpoint``) too.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPE_CODES, PlainGrad, raise_on_error, stream_handle
+from repro_torch.kernels._common import (DTYPE_CODES, Cost, PlainGrad, count_meta_call,
+                                         raise_on_error, stream_handle)
 from repro_torch.kernels.ssd import ref
 
 HEAD_DIMS = (16, 32, 64)   # P
@@ -85,14 +89,30 @@ def _kernel(name: str):
     return _fns[name]
 
 
-def _check(x, dt, A, Bm, Cm, D, h0, chunk):
+def cost(b: int, s: int, h: int, p: int, n: int, *, chunk: int, h0: bool,
+         dtype: torch.dtype) -> Cost:
+    """One call's least work at the caller's ``chunk``: C·Bᵀ once per
+    (batch row, chunk), since B and C are one group that all heads share;
+    the gated products and the state's per head.  x read and y written in
+    ``dtype``, dt (float32), B and C read, h0 read and the final state
+    written in float32 once."""
+    chunks = -(-s // chunk)
+    flops = (2 * chunk * chunk * n * b * chunks
+             + 2 * chunk * (chunk * p + 2 * n * p) * b * h * chunks)
+    state = b * h * p * n * 4
+    return Cost({dtype: float(flops)},
+                2 * b * s * h * p * dtype.itemsize + b * s * h * 4
+                + 2 * b * s * n * dtype.itemsize + (state if h0 else 0) + state)
+
+
+def _check(x, dt, A, Bm, Cm, D, h0, chunk, device_type: str = "cuda"):
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     tensors = {"x": x, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D}
     if h0 is not None:
         tensors["h0"] = h0
     for arg, t in tensors.items():
-        if t.device.type != "cuda":
+        if t.device.type != device_type:
             raise ValueError(f"ssd: {arg} is on {t.device}, the kernel needs a CUDA tensor")
         if t.device != x.device:
             raise ValueError(f"ssd: {arg} is on {t.device}, not {x.device}")
@@ -142,7 +162,18 @@ def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
     # The reference kernel's casts (ssd_scan.py:128-131); h0 is float32 too.
     dt, A, D = dt.float(), A.float(), D.float()
     h0 = None if h0 is None else h0.float()
-    return PlainGrad.apply(_launch, ref.ssd_chunked, {"chunk": chunk}, x, dt, A, Bm, Cm, D, h0)
+    kernel = _meta if x.device.type == "meta" else _launch
+    return PlainGrad.apply(kernel, ref.ssd_chunked, {"chunk": chunk}, x, dt, A, Bm, Cm, D, h0)
+
+
+def _meta(x, dt, A, Bm, Cm, D, h0, *, chunk: int):
+    """The meta route: the outputs' shapes, and the call's ``cost`` counted."""
+    _check(x, dt, A, Bm, Cm, D, h0, chunk, "meta")
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    count_meta_call("ssd", cost(b, s, h, p, n, chunk=chunk, h0=h0 is not None, dtype=x.dtype))
+    return (torch.empty((b, s, h, p), dtype=x.dtype, device=x.device),
+            torch.empty((b, h, p, n), dtype=torch.float32, device=x.device))
 
 
 def _launch(x, dt, A, Bm, Cm, D, h0, *, chunk: int):

@@ -2,10 +2,11 @@
 
 Port of ``repro/models/params.py``.  A model builder returns a nested
 structure of dicts and lists whose leaves are ``ParamDecl``; ``init_params``
-materializes it as tensors.  Where the reference stacks layers on a leading
-``layers`` axis, the port keeps a Python list with one entry per layer, so a
-per-layer weight has the shape the reference's stacked weight has without
-its first axis — and the same fan-in (``shape[-2]``).
+materializes it as tensors, ``abstract_params`` as ``meta`` tensors (shapes
+and dtypes, no memory) for the dry-run.  Where the reference stacks layers
+on a leading ``layers`` axis, the port keeps a Python list with one entry
+per layer, so a per-layer weight has the shape the reference's stacked
+weight has without its first axis — and the same fan-in (``shape[-2]``).
 """
 from __future__ import annotations
 
@@ -52,6 +53,13 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def abstract_params(decl_tree, dtype=torch.bfloat16):
+    """``meta`` tensors of each declaration's shape and dtype (``dtype``
+    unless the declaration names its own): what the dry-run runs against."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype or dtype, device="meta"),
+                    decl_tree)
+
+
 def init_params(decl_tree, generator: torch.Generator | int = 0,
                 dtype=torch.bfloat16, device="cuda"):
     """Materialize parameters on ``device`` from a seeded generator.
@@ -60,8 +68,11 @@ def init_params(decl_tree, generator: torch.Generator | int = 0,
     fan_in = ``shape[-2]`` (``shape[-1]`` for vectors), drawn in float32
     and cast.  The draws differ from ``jax.random``'s; tests that compare
     with the JAX package convert its parameters (``models/convert.py``).
+    On ``meta`` there is nothing to draw: the tree is ``abstract_params``'.
     """
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return abstract_params(decl_tree, dtype)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=dev).manual_seed(int(generator))
 

@@ -54,6 +54,14 @@ def init_opt_state(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=leaves[0].device)}
 
 
+def abstract_opt_state(abstract_params) -> dict:
+    """``init_opt_state``'s tree as ``meta`` tensors: float32 m and v of
+    each parameter's shape, an int32 step."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")  # noqa: E731
+    return {"m": tree_map(f32, abstract_params), "v": tree_map(f32, abstract_params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares."""
     return torch.sqrt(sum(torch.sum(leaf.float() ** 2) for leaf in tree_leaves(tree)))

@@ -12,6 +12,21 @@ from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.training.optimizer import OptimizerConfig, adamw_update
 
 
+def loss_and_grads(api: ModelApi, params, batch, impl=None):
+    """(loss, metrics, grads): ``api.train_loss`` at ``params`` and
+    ``torch.autograd.grad`` of the loss over the parameter leaves, in
+    ``tree_leaves`` order, inside the profiler range ``train_step.forward``
+    for the forward."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    tracked = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        with record_function("train_step.forward"):
+            loss, metrics = api.train_loss(tracked, batch, impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss, metrics, grads
+
+
 def build_train_step(api: ModelApi, opt_cfg: OptimizerConfig, impl=None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -25,13 +40,7 @@ def build_train_step(api: ModelApi, opt_cfg: OptimizerConfig, impl=None) -> Call
     """
 
     def train_step(params, opt_state, batch):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        it = iter(leaves)
-        tracked = tree_map(lambda _: next(it), params)
-        with torch.enable_grad():
-            with record_function("train_step.forward"):
-                loss, metrics = api.train_loss(tracked, batch, impl=impl)
-            grads = torch.autograd.grad(loss, leaves)  # a tree: the leaves in order
+        loss, metrics, grads = loss_and_grads(api, params, batch, impl)
         with record_function("train_step.optimizer"):
             params, opt_state, stats = adamw_update(list(grads), opt_state, params, opt_cfg)
         metrics = {k: v.detach() for k, v in metrics.items()}
