@@ -101,6 +101,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    full-width dense fleet with routing, a reactive warm pool and failures
    on (launch counters zeroed and read as in phase 5), and checks that the
    same engine at reduced widths on the CPU schedules exactly as the card.
+   ``table2_oracle`` holds each Table II trace on the card, with no layer and
+   with all three on, to the port's float64 numpy oracle
+   (``core/reference_sim.py``) at the reference's tolerances; the sweep mesh
+   (``phase_sweep_mesh``): ``sweep_blocks`` runs the four entry points'
+   grids at ``tests/test_sharding.py``'s sizes as the 8 rank blocks of a
+   (2, 2, 2) mesh in this process and a stream in 3 policy blocks, each
+   bit for bit the unsharded run; ``sweep_nccl`` runs the same grids over
+   a (1, 1, 1) mesh of a one-rank NCCL group (the gather on the card), bit
+   for bit ``shard=False``, and destroys the group.
 6c. Train (``phase_train``, run when no fleet is resident on the card):
    qwen2-vl-2b, mamba2-370m and granite-moe-1b-a400m at published widths
    cut to 4 layers, float32, 3 ``build_train_step`` steps through the
@@ -148,6 +157,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    beside the paper's Table I, and that fleet through ``simulate`` on the
    card under four policies (``roofline_fleet`` lines).
 
+9. Examples (``phase_examples``): each ``examples/*_torch.py`` once on the
+   card at its defaults through its ``main`` (``example`` lines: wall
+   time, every printed number finite; quickstart's Table II anchors).
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, the script exits non-zero
@@ -160,6 +173,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1319,6 +1333,85 @@ def _trace_gap(card, cpu) -> float:
     return worst
 
 
+ORACLE_FIELDS = ("allocation", "served", "queue", "latency", "completed", "warm", "pending")
+ORACLE_FAILURE_FIELDS = ("dropped", "retried", "expired", "recovery")
+
+
+def _oracle_gap(card, oracle: dict, failing: bool, slack: dict | None = None) -> tuple:
+    """Largest distance of a card trace from the numpy oracle, in units of
+    the reference's tolerance (tests/test_reference_sim.py: rtol 2e-4, atol
+    2e-3, the queue's atol 0.5; with failures tests/test_failures.py's rtol
+    5e-3, atol 5e-3 of the field's largest magnitude), widened elementwise
+    by ``slack``; at most 1 means within.  And the field it is in."""
+    worst, where = 0.0, ""
+    for field in ORACLE_FIELDS + (ORACLE_FAILURE_FIELDS if failing else ()):
+        got = card.fields()[field].cpu().double().numpy()
+        want = oracle[field]
+        if failing:
+            tol = 5e-3 * max(np.abs(want).max(), 1.0) + 5e-3 * np.abs(want)
+        else:
+            tol = (0.5 if field == "queue" else 2e-3) + 2e-4 * np.abs(want)
+        gap = np.abs(got - want)
+        if slack is not None:
+            gap = np.maximum(gap - slack[field], 0.0)
+        g = float((gap / tol).max())
+        if g > worst:
+            worst, where = g, field
+    return worst, where
+
+
+# Where the float32 simulators (JAX's and the port's CPU trace alike) leave
+# the float64 oracle at the Table II inputs with all three layers on.
+TABLE2_ORACLE_GAPS = {("all", "round_robin")}
+
+
+def table2_oracle(arr, fleet, config, cards: dict) -> None:
+    """The card's ``simulate`` trace against the port's float64 numpy oracle
+    (``core/reference_sim.py::simulate_numpy``) at the Table II fleet and the
+    paper's constant arrivals, every policy, with no layer (``cards``, the
+    Table II traces) and with all three layers on (tests/test_torch_simulator.py's
+    ``"all"``: a coordinator star, a reactive pool with a 3 s cold start,
+    ``failure_scenario_library(seed=2)[-1]``, 8 GPUs).  Where the JAX package's
+    own trace leaves the oracle (``REFERENCE_ORACLE_GAPS``: all layers under
+    objective_descent), the card is held within the CPU trace's own distance
+    from the oracle (the CPU trace stands for JAX's; the tests hold them
+    together).  One ``table2_oracle`` line per policy and setting.
+
+    At these inputs that set is not the tests' one (all layers under
+    objective_descent, at their Poisson arrivals) but all layers under
+    round_robin: there the recovery indicator, a comparison of two queue
+    totals of ~220 that agree to 3e-5, reads 0 at steps 86 and 94 in JAX's
+    float32 trace and the port's CPU trace, and 1 in the float64 oracle
+    (``TABLE2_ORACLE_GAPS``)."""
+    from repro_torch.core import allocator as alloc, capacity, failures, routing, simulator
+    from repro_torch.core.reference_sim import simulate_numpy
+
+    all_layers = {"workflow": routing.coordinator_star(4),
+                  "capacity": capacity.capacity_config("reactive", cold_start_s=3.0,
+                                                       min_instances=1.0),
+                  "failures": failures.failure_scenario_library(seed=2)[-1]}
+    elastic = simulator.SimConfig(num_gpus=8.0)
+    for policy in alloc.policy_names():
+        for setting, layers, cfg in (("none", {}, config), ("all", all_layers, elastic)):
+            card = cards[policy] if setting == "none" else _simulate_on_card(
+                policy, arr, fleet, cfg, **layers)[0]
+            t = time.perf_counter()
+            oracle = simulate_numpy(policy, arr, fleet, num_gpus=cfg.num_gpus, **layers)
+            oracle_s = time.perf_counter() - t
+            failing = "failures" in layers
+            slack = None
+            if (setting, policy) in TABLE2_ORACLE_GAPS:
+                cpu = simulator.simulate(policy, arr, fleet, cfg, device="cpu", **layers)
+                slack = {f: np.abs(cpu.fields()[f].double().numpy() - oracle[f])
+                         for f in ORACLE_FIELDS + ORACLE_FAILURE_FIELDS}
+            gap, where = _oracle_gap(card, oracle, failing, slack)
+            emit({"phase": "table2_oracle", "policy": policy, "layers": setting,
+                  "steps": arr.shape[0], "gap": gap, "worst_field": where,
+                  "slack": slack is not None, "oracle_s": oracle_s})
+            check(gap <= 1.0, f"table2_oracle {setting}/{policy}: the card's trace is {gap} "
+                  f"tolerances from the numpy oracle ({where})")
+
+
 def phase_table2() -> dict:
     """Table II on the card: every registered policy through the port's
     ``simulate`` on ``paper_fleet()`` and the paper's constant workload;
@@ -1334,12 +1427,12 @@ def phase_table2() -> dict:
     fleet = agents.paper_fleet()
     arr = workload.constant(agents.PAPER_ARRIVAL_RATES, 100)
     config = simulator.SimConfig()
-    rows, walls = {}, {}
+    rows, walls, cards = {}, {}, {}
     for policy in alloc.policy_names():
         _simulate_on_card(policy, arr, fleet, config)  # first run: lazy loads, not timed
         runs = [_simulate_on_card(policy, arr, fleet, config) for _ in range(3)]
         trace, wall = runs[0][0], statistics.median(r[1] for r in runs)
-        walls[policy] = wall
+        walls[policy], cards[policy] = wall, trace
         cpu = simulator.simulate(policy, arr, fleet, config, device="cpu")
         s = simulator.summarize(policy, trace, config, fleet.active)
         rows[policy] = s
@@ -1371,6 +1464,8 @@ def phase_table2() -> dict:
               "slo_violations": s.slo_violations, "simulate_s": wall,
               "trace_gap_vs_cpu": gap})
         check(gap <= 1.0, f"table2 all layers {policy}: {gap} tolerances from the CPU's trace")
+
+    table2_oracle(arr, fleet, config, cards)
 
     trace, _ = _simulate_on_card("adaptive", arr, fleet, elastic, capacity=reactive,
                                  failures=chaos)
@@ -1660,6 +1755,103 @@ def phase_sweep() -> dict:
         check(finite, "sweep frontier: non-finite metrics")
     emit({"phase": "sweep_total", "s": time.perf_counter() - t_phase})
     return walls
+
+
+MESH_STEPS = 12                        # tests/test_sharding.py's grids
+MESH_POLICIES = ("static_equal", "adaptive", "water_filling")
+MESH_ODD_FLEETS = (2, 3, 4, 5, 3)      # non-divisible on purpose
+MESH_BLOCKS = (2, 2, 2)                # the mesh 8 ranks build under shard="3d"
+
+
+def _mesh_grids(sw, shard) -> dict:
+    """The four entry points' grids at ``tests/test_sharding.py``'s sizes,
+    each with the wall time of its streams (``_StreamClock``)."""
+    from repro_torch.core import agents, workload
+
+    fleet = agents.synthetic_fleet(4, seed=0)
+    lib = sw.scenario_library(workload.synthetic_rates(4, seed=0), num_steps=MESH_STEPS)
+    odd = [agents.synthetic_fleet(n, seed=i) for i, n in enumerate(MESH_ODD_FLEETS)]
+    kw = dict(policies=MESH_POLICIES, shard=shard, device=DEVICE)
+    calls = {"sweep": lambda: sw.sweep(fleet, lib, **kw),
+             "fleets": lambda: sw.sweep_fleets(odd, num_steps=MESH_STEPS, seed=0, **kw),
+             "workflows": lambda: sw.sweep_workflows(fleet, num_steps=MESH_STEPS, **kw),
+             "capacity": lambda: sw.sweep_capacity(fleet, num_steps=MESH_STEPS, **kw)}
+    out = {}
+    with _StreamClock() as clock:
+        for name, call in calls.items():
+            before = len(clock.walls)
+            res, wall = _timed(call)
+            out[name] = (res, sum(clock.walls[before:]), wall, len(clock.walls) - before)
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "metrics", "per_agent_latency", "per_agent_throughput", "per_agent_queue"))
+
+
+def phase_sweep_mesh() -> None:
+    """The sweep mesh of ``core/sharding.py`` on the card.  ``sweep_blocks``:
+    the four entry points' grids (tests/test_sharding.py's sizes: 12 steps,
+    five fleets of 2–5 agents, three policies) as the 8 per-rank blocks of a
+    (2, 2, 2) mesh run one after another in this process and assembled,
+    held to the unsharded grids bit for bit; and ``simulate_stream_core`` in
+    3 policy blocks held to the unblocked stream bit for bit.
+    ``sweep_nccl``: the sharded runner over an explicit (1, 1, 1) mesh of a
+    one-rank NCCL group, so that its gather runs on the card, held to
+    ``shard=False`` bit for bit; the group is destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.core import agents, allocator as alloc, sharding, simulator
+
+    sw = _sweep_module()
+    _mesh_grids(sw, False)  # first run: lazy loads, not timed
+    plain = _mesh_grids(sw, False)
+    blocked = _mesh_grids(sw, MESH_BLOCKS)
+    for name, (res, loop_s, wall, streams) in blocked.items():
+        want, plain_loop_s, plain_wall, _ = plain[name]
+        same = _bits_equal(res, want)
+        emit({"phase": "sweep_blocks", "mesh": list(MESH_BLOCKS), "grid": name,
+              "shape": list(res.metrics.shape), "identical": same, "streams": streams,
+              "loop_s": loop_s, "wall_s": wall, "unsharded_loop_s": plain_loop_s,
+              "unsharded_wall_s": plain_wall})
+        check(same, f"sweep_blocks {name}: the (2, 2, 2) blocks differ from the unsharded grid")
+
+    arr = torch.from_numpy(np.random.default_rng(7).poisson(
+        agents.PAPER_ARRIVAL_RATES, (MESH_STEPS * 4, 4)).astype(np.float32)).to(DEVICE)
+    fleet = agents.paper_fleet().to(DEVICE)
+    names = alloc.policy_names()
+    whole, whole_s = _timed(lambda: simulator.simulate_stream_core(
+        arr, fleet, simulator.SimConfig(), names))
+    parts, parts_s = [], 0.0
+    for k in range(3):
+        part, s = _timed(lambda k=k: simulator.simulate_stream_core(
+            arr, fleet, simulator.SimConfig(), names, num_policy_blocks=3, policy_block=k))
+        parts.append(part)
+        parts_s += s
+    same = all(torch.equal(torch.cat([pt[i] for pt in parts]), whole[i]) for i in range(4))
+    emit({"phase": "sweep_blocks", "policy_blocks": 3, "policies": len(names),
+          "steps": arr.shape[0], "identical": same, "blocks_s": parts_s, "whole_s": whole_s})
+    check(same, "sweep_blocks: the 3 policy blocks differ from the unblocked stream")
+
+    port = sharding.free_port()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = sharding.grid_mesh(num_devices=1, device_type="cuda")
+        check(sharding.mesh_dims(mesh) == (1, 1, 1), f"sweep_nccl: mesh {mesh}")
+        gathered = _mesh_grids(sw, mesh)
+        for name, (res, loop_s, wall, _) in gathered.items():
+            want = plain[name][0]
+            same = _bits_equal(res, want)
+            emit({"phase": "sweep_nccl", "mesh": [1, 1, 1], "grid": name,
+                  "backend": dist.get_backend(), "identical": same, "loop_s": loop_s,
+                  "wall_s": wall, "unsharded_wall_s": plain[name][2]})
+            check(same, f"sweep_nccl {name}: the gathered grid differs from shard=False")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "sweep_nccl: the process group outlived the phase")
 
 
 def profile_sweep(host_s: float) -> None:
@@ -2457,6 +2649,60 @@ def phase_roofline(decode_rows: list, prefill_row: dict, train_rows: list,
           "s": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "profile_driven_fleet", "robustness_study", "serve_fleet",
+            "train_small")
+_NUMBER = re.compile(
+    r"(?<![\w.])[-+]?(?:\d+\.?\d*(?:[eE][-+]?\d+)?|nan|NaN|inf|Infinity)(?![\w])")
+
+
+def phase_examples() -> None:
+    """Each ``examples/*_torch.py`` once on the card at its defaults, through
+    its ``main``: one ``example`` line each with its wall time, its printed
+    lines and every number it printed (all must be finite); quickstart's
+    rows must give the Table II anchors (static_equal 110.3, adaptive
+    111.9 / 58.12, every cost 0.020)."""
+    import contextlib as ctx
+    import importlib.util
+    import io
+
+    for name in EXAMPLES:
+        path = ROOT / "examples" / f"{name}_torch.py"
+        spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        t = time.perf_counter()
+        with ctx.redirect_stdout(out):
+            result = mod.main(["--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        text = out.getvalue()
+        numbers = [float(x) for x in _NUMBER.findall(text)]
+        finite = bool(numbers) and all(math.isfinite(x) for x in numbers)
+        line = {"phase": "example", "name": name, "s": wall, "lines": len(text.splitlines()),
+                "numbers": len(numbers), "finite": finite}
+        if name == "quickstart":
+            line["rows"] = {p: [r.avg_latency, r.total_throughput, r.cost]
+                            for p, r in result.items()}
+        emit(line)
+        check(finite, f"example {name}: printed a non-finite number or none:\n{text}")
+        if name == "quickstart":
+            check(round(result["static_equal"].avg_latency, 1) == 110.3,
+                  "example quickstart: static_equal latency")
+            check(round(result["adaptive"].avg_latency, 1) == 111.9,
+                  "example quickstart: adaptive latency")
+            check(round(result["adaptive"].total_throughput, 2) == 58.12,
+                  "example quickstart: adaptive throughput")
+            check(all(round(r.cost, 3) == 0.020 for r in result.values()),
+                  "example quickstart: cost")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2514,6 +2760,8 @@ def main() -> None:
     lap("table2")
     sweep_walls = phase_sweep()
     lap("sweep")
+    phase_sweep_mesh()
+    lap("sweep_mesh")
     serverless = phase_serverless_engine()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2550,6 +2798,8 @@ def main() -> None:
     lap("train_profiles")
     phase_roofline(decode_rows, ssd_row, train_rows, trained)
     lap("roofline")
+    phase_examples()
+    lap("examples")
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",

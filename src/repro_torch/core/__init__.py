@@ -26,6 +26,8 @@ from repro_torch.core.allocator import (
     policy_switch,
     predictive_adaptive,
     register_policy,
+    round_robin,
+    static_equal,
     throughput_greedy,
     water_filling,
 )
@@ -48,6 +50,7 @@ from repro_torch.core.routing import (
     Workflow,
     coordinator_star,
     hierarchical,
+    independent_workflow,
     pad_workflow,
     pipeline_chain,
     stack_workflows,
@@ -87,7 +90,7 @@ __all__ = [
     "AgentSpec", "Fleet", "PAPER_ARRIVAL_RATES", "T4_PRICE_PER_HOUR",
     "paper_fleet", "pad_fleet", "scale_fleet", "stack_fleets", "synthetic_fleet",
     "POLICY_NAMES", "adaptive_allocation", "predictive_adaptive",
-    "throughput_greedy", "water_filling",
+    "round_robin", "static_equal", "throughput_greedy", "water_filling",
     "register_policy", "policy_names", "policy_id", "get_policy", "dispatch",
     "policy_stack", "policy_switch", "ObjectiveWeights", "step_objective",
     "POLICY_IDS",
@@ -98,7 +101,7 @@ __all__ = [
     "Scenario", "SweepResult", "SweepSummary", "fleet_scenario_library",
     "scenario_library", "sweep", "sweep_fleets",
     "routing", "Workflow", "coordinator_star", "hierarchical",
-    "pad_workflow", "pipeline_chain",
+    "independent_workflow", "pad_workflow", "pipeline_chain",
     "stack_workflows", "synthetic_workflow", "sweep_workflows",
     "workflow_scenario_library",
     "capacity", "CapacityConfig", "CapacityState", "billing_cost",

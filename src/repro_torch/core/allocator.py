@@ -33,6 +33,8 @@ from typing import Callable, Sequence, TYPE_CHECKING
 
 import torch
 
+from repro_torch._device import resolve_device
+
 if TYPE_CHECKING:
     from repro_torch.core.agents import Fleet
 
@@ -89,10 +91,23 @@ def adaptive_allocation(lam, min_gpu, priority, g_total=1.0) -> torch.Tensor:
     return torch.where(d_total > 0, g, torch.zeros_like(g))
 
 
+def static_equal(num_agents: int, g_total=1.0, device="cuda") -> torch.Tensor:
+    """Baseline: G_total/N to every agent, regardless of load."""
+    return torch.full((num_agents,), g_total / num_agents, dtype=torch.float32,
+                      device=resolve_device(device))
+
+
 def masked_static_equal(active: torch.Tensor, g_total=1.0) -> torch.Tensor:
     """G_total/N_active to each unmasked agent, 0 to padding."""
     n_active = torch.clamp(active.sum(-1, keepdim=True), min=1.0)
     return (active * (g_total / n_active)).to(torch.float32)
+
+
+def round_robin(t, num_agents: int, g_total=1.0, device="cuda") -> torch.Tensor:
+    """Baseline: 100% of the GPU to agent (t mod N) — '100% sequential'."""
+    dev = resolve_device(device)
+    agent = torch.remainder(torch.as_tensor(t, device=dev).to(torch.int64), num_agents)
+    return torch.nn.functional.one_hot(agent, num_agents).to(torch.float32) * g_total
 
 
 def masked_round_robin(t, active: torch.Tensor, g_total=1.0) -> torch.Tensor:

@@ -172,6 +172,11 @@ def stack_failures(specs: Sequence[FailureSpec]) -> FailureSpec:
                        **leaves)
 
 
+def failure_names() -> tuple[str, ...]:
+    """The injector families composed by this module (introspection)."""
+    return ("revocation", "agent_outage", "deadline")
+
+
 def failures_env_enabled() -> bool:
     return os.environ.get(FAILURE_ENV, "1") not in ("0", "false", "off")
 

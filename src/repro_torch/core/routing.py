@@ -140,6 +140,12 @@ def independent(n: int) -> Workflow:
     return _workflow("independent", np.zeros((n, n)), np.ones(n), np.ones(n))
 
 
+# Package-level alias (``repro_torch.core.independent_workflow``): the bare
+# name ``independent`` is too generic outside this module.
+def independent_workflow(n: int) -> Workflow:
+    return independent(n)
+
+
 def coordinator_star(n: int, fan_out: float = 1.0) -> Workflow:
     """Agent 0 is the coordinator (the only source); every served
     coordinator request fans out uniformly to the n-1 specialist sinks."""

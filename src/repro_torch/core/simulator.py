@@ -622,6 +622,8 @@ def simulate_stream_core(
     workflow: Workflow | None = None,
     capacity: CapacityConfig | None = None,
     workload_spec=None,
+    num_policy_blocks: int = 1,
+    policy_block: int | None = None,
     block_size: int | None = None,
     gen_name: str | None = None,
     failures: FailureSpec | None = None,
@@ -654,17 +656,31 @@ def simulate_stream_core(
     metrics bit for bit.  ``gen_name`` names the generator of every row
     (the direct-dispatch fast path).
 
+    **Policy blocks** (``num_policy_blocks`` > 1): the named policy list is
+    cut into equal contiguous blocks and this call computes only block
+    ``policy_block`` (a host integer: the policy coordinate of a rank of
+    the sweep mesh, ``core/sharding.py``), each of its policies once per
+    step through ``allocator.policy_stack_blocks``; the state and metric
+    rows shrink to P/blocks.
+
     The loop never waits on the device: steps and blocks are host
     integers, and every host value enters as a fill.
 
     Returns ``(metrics (*cells, P, M), per-agent latency (*cells, P, N),
-    per-agent throughput, per-agent queue)``.
+    per-agent throughput, per-agent queue)``, P the rows of the block when
+    blocked.
     """
     names = alloc.policy_names() if policy_names is None else tuple(policy_names)
     if (arrivals is None) == (workload_spec is None):
         raise ValueError("pass exactly one of arrivals= / workload_spec=")
+    blocks = int(num_policy_blocks)
+    if blocks > 1:
+        if len(names) % blocks:
+            raise ValueError(f"{len(names)} policies do not split into {blocks} equal blocks")
+        if policy_block is None:
+            raise ValueError("num_policy_blocks > 1 requires policy_block")
     dev = fleet.active.device
-    p, n = len(names), fleet.num_agents
+    p, n = len(names) // blocks, fleet.num_agents
     elastic, failing = capacity is not None, failures is not None
     synth = workload_spec
     if synth is not None and not isinstance(synth, workload_mod.Synth):
@@ -691,6 +707,9 @@ def simulate_stream_core(
     gate_blk = gate[..., None, :]
 
     def dispatch(t, lam, lam_ema, queue, budget):
+        if blocks > 1:
+            return alloc.policy_stack_blocks(t, lam, lam_ema, queue, fleet, budget, names,
+                                             blocks, policy_block)
         return alloc.policy_stack(t, lam, lam_ema, queue, fleet, budget, names)
 
     wstate = synth.init() if synth is not None else None

@@ -26,13 +26,26 @@ host instead, through the same step functions).  ``block_size`` (or
 every block size.  ``return_arrays=True`` returns the device tensors.
 
 Entry points run on ``device="cuda"`` unless the caller asks for another.
-There is no mesh on one card: the reference's ``core/sharding.py`` has no
-counterpart, and ``shard=`` is accepted and ignored (every grid runs on
-the one device).
+
+**Sharding** (``core/sharding.py``).  Under a ``torch.distributed`` process
+group of more than one rank (``sharding.should_shard``), a streaming grid
+runs as the reference's sharded grid: its cut axes padded to the mesh with
+row 0 (the policy names with ``names[0]`` when the policy axis is split),
+each rank running ``_stream_grid`` on its own block (its policy block
+included), the blocks gathered over the mesh's group so that every rank
+returns the whole grid, the padding stripped.  ``shard=False`` or
+``REPRO_SWEEP_SHARD=0`` keeps one rank's path; ``shard="3d"`` also splits
+the policy stack.  ``shard`` may also name the mesh: a ``sharding.grid_mesh``
+(its ranks run their blocks and gather them) or a ``(dd, dg, dp)`` tuple (this
+process runs every rank's block in turn, no process group).  The trace
+oracle (``stream=False``) keeps the reference's fleet-axis path: the fleet
+rows cut over every rank.  A sharded call whose group or mesh cannot be
+built raises; it never runs unsharded instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -43,6 +56,7 @@ from repro_torch.core import allocator as alloc
 from repro_torch.core import failures as fail_mod
 from repro_torch.core import prng
 from repro_torch.core import routing
+from repro_torch.core import sharding
 from repro_torch.core import workload
 from repro_torch.core.agents import Fleet, pad_fleet, stack_fleets
 from repro_torch.core.capacity import (
@@ -300,22 +314,32 @@ def _lead_view(x: torch.Tensor) -> torch.Tensor:
     return x.unsqueeze(1)
 
 
+_STACK = {"fleet": stack_fleets, "workflow": stack_workflows, "capacity": stack_capacities,
+          "failure": fail_mod.stack_failures}
+
+
+def _stacked(rows, batch_axis):
+    """The batch axis's rows stacked on a leading axis (a list of rows), or
+    as given (already stacked)."""
+    return _STACK[batch_axis](rows) if isinstance(rows, list) else rows
+
+
 def _stream_cells(batch_axis, fleet, workflow, capacity, fspec, dev):
     """The layers shaped for the stream's ``(P, [L,] W, N)`` state: the
-    batch axis's list stacked, each leaf (L, 1, ...)."""
+    batch axis's rows stacked (a list) or as stacked, each leaf (L, 1, ...)."""
     if batch_axis == "fleet":
-        st = stack_fleets(fleet)
+        st = _stacked(fleet, batch_axis)
         fleet = dataclasses.replace(st, **{f: _lead_view(getattr(st, f)) for f in (
             "model_size_mb", "base_throughput", "min_gpu", "priority", "active")})
     if batch_axis == "workflow":
-        st = stack_workflows(workflow)
+        st = _stacked(workflow, batch_axis)
         workflow = dataclasses.replace(st, **{
             f: _lead_view(getattr(st, f)) for f in ("route", "source", "sink", "fan_out")})
     if batch_axis == "capacity":
-        capacity = stack_capacities(capacity).map(_lead_view)
+        capacity = _stacked(capacity, batch_axis).map(_lead_view)
     if batch_axis == "failure":
         # Scalar knobs (B, 1); the deadline, used per agent, (B, 1, 1 or N).
-        st = fail_mod.stack_failures(fspec)
+        st = _stacked(fspec, batch_axis)
         deadline = st.deadline_s.reshape(st.deadline_s.shape[:1] + (1,)
                                           + (tuple(st.deadline_s.shape[1:]) or (1,)))
         fspec = dataclasses.replace(st.map(_lead_view), deadline_s=deadline,
@@ -329,13 +353,15 @@ def _stream_cells(batch_axis, fleet, workflow, capacity, fspec, dev):
 
 
 def _stream_grid(names, arrivals, wspec, fleet, workflow, capacity, fspec, config,
-                 batch_axis, dev, block_size):
+                 batch_axis, dev, block_size, num_policy_blocks=1, policy_block=None):
     fleet, workflow, capacity, fspec = _stream_cells(batch_axis, fleet, workflow, capacity,
                                                      fspec, dev)
     synth = None if wspec is None else workload.Synth(wspec, dev)
     arr = None if arrivals is None else arrivals.to(dev)
     out = simulate_stream_core(arr, fleet, config, names, workflow, capacity,
-                               workload_spec=synth, block_size=block_size, failures=fspec)
+                               workload_spec=synth, num_policy_blocks=num_policy_blocks,
+                               policy_block=policy_block, block_size=block_size,
+                               failures=fspec)
     lead = 0 if batch_axis is None else 1
     # (*cells, P, ·) with cells ([L,] W): the policy axis before the scenarios.
     return tuple(x.movedim(lead + 1, lead) for x in out)
@@ -369,13 +395,136 @@ def _trace_grid(names, arrivals, fleet, workflow, capacity, fspec, config, batch
     return tuple(out)
 
 
+# ---------------------------------------------------------------------------
+# Sharded placement over a process-group mesh (core/sharding.py)
+# ---------------------------------------------------------------------------
+
+def _pad_grid(arrivals, wspec, fleet, workflow, capacity, fspec, batch_axis, dd, dg):
+    """The grid's inputs with their cut axes padded to the mesh (row 0
+    repeated), as the reference's ``_run_stream_sharded``: the batch rows
+    stacked first (fleets padded to the widest), so every block has the
+    grid's width; and the batch and scenario counts to strip back to."""
+    column = arrivals if wspec is None else wspec.gen_id
+
+    def pad(axis_mults):
+        nonlocal arrivals, wspec
+        for axis, mult in axis_mults:
+            if arrivals is not None:
+                arrivals = sharding.pad_axis(arrivals, axis, mult)
+            else:
+                wspec = sharding.pad_tree_axis(wspec, axis, mult)
+
+    layers = {"fleet": fleet, "workflow": workflow, "capacity": capacity, "failure": fspec}
+    b = None
+    if batch_axis is None:
+        w = column.shape[0]
+        pad([(0, dd * dg)])
+    else:
+        b = len(layers[batch_axis])
+        w = column.shape[1] if batch_axis == "fleet" else column.shape[0]
+        pad([(0, dd), (1, dg)] if batch_axis == "fleet" else [(0, dg)])
+        # The batch rows stacked, then padded leaf by leaf (names stay).
+        layers[batch_axis] = sharding.pad_tree_axis(
+            _STACK[batch_axis](list(layers[batch_axis])), 0, dd)
+    return ((arrivals, layers["fleet"], layers["workflow"], layers["capacity"], wspec,
+             layers["failure"]), b, w)
+
+
+def _stream_block(inputs, dims, coord, names, config, batch_axis, dev, block_size):
+    """One rank's block of a sharded streaming grid: a plain function of
+    the padded inputs, the mesh's (dd, dg, dp) and the rank's coordinate.
+    Returns the block's (metrics, per-agent latency, throughput, queue),
+    laid out ([batch,] policy, scenario, ·)."""
+    dp = dims[2]
+    in_specs, _ = sharding.grid_specs(batch_axis, policy=dp > 1)
+    arrivals, fleet, workflow, capacity, wspec, fspec = (
+        sharding.shard_block(x, spec, dims, coord) for x, spec in zip(inputs, in_specs))
+    return _stream_grid(names, arrivals, wspec, fleet, workflow, capacity, fspec, config,
+                        batch_axis, dev, block_size, num_policy_blocks=dp,
+                        policy_block=coord[sharding.POLICY_AXIS] if dp > 1 else None)
+
+
+def _run_blocks(run_block, mesh, out_spec):
+    """Every rank's block (a tuple of tensors, each laid out by
+    ``out_spec``), assembled into whole tensors.  ``mesh`` is a
+    ``sharding.grid_mesh`` (this rank runs its block and gathers the
+    others' over the mesh's group) or a (dd, dg, dp) tuple (this process
+    runs every rank's block in turn)."""
+    dims = sharding.mesh_dims(mesh)
+    if isinstance(mesh, tuple):
+        blocks = [run_block(sharding.rank_coordinate(r, dims)) for r in range(math.prod(dims))]
+    else:
+        coord = dict(zip(sharding.MESH_AXES, mesh.get_coordinate()))
+        blocks = sharding.all_gather_blocks(run_block(coord), mesh)
+    return tuple(sharding.assemble([blk[k] for blk in blocks], out_spec, dims)
+                 for k in range(len(blocks[0])))
+
+
+def _run_stream_sharded(names, arrivals, wspec, fleet, workflow, capacity, fspec, config,
+                        batch_axis, dev, block_size, mesh):
+    """Pad the cut axes to the mesh, run each rank's block, gather the
+    blocks and strip the padding: identical to the unsharded grid, since
+    cells never interact.  With a split policy axis the name list pads by
+    repeating ``names[0]`` and each rank runs its policy block."""
+    dims = sharding.mesh_dims(mesh)
+    dd, dg, dp = dims
+    p = len(names)
+    names = tuple(names) + (names[0],) * ((-p) % dp)
+    inputs, b, w = _pad_grid(arrivals, wspec, fleet, workflow, capacity, fspec, batch_axis,
+                             dd, dg)
+    _, out_spec = sharding.grid_specs(batch_axis, policy=dp > 1)
+    out = _run_blocks(
+        lambda coord: _stream_block(inputs, dims, coord, names, config, batch_axis, dev,
+                                    block_size),
+        mesh, out_spec)
+    if batch_axis is None:
+        return tuple(x[:p, :w] for x in out)
+    return tuple(x[:b, :p, :w] for x in out)
+
+
+def _run_trace_sharded(names, arrivals, fleet, workflow, capacity, fspec, config, dev,
+                       keep_traces, mesh):
+    """The trace oracle's fleet axis over every rank of the mesh (the
+    reference's ``_shard_fleet_axis``): the fleet rows, padded to one width
+    and to the ranks with fleet 0, cut over the flattened mesh; every output
+    (traces included) gathered and stripped."""
+    dims = sharding.mesh_dims(mesh)
+    f = len(fleet)
+    n_max = max(x.num_agents for x in fleet)
+    total = math.prod(dims)
+    fleets = sharding.pad_axis([pad_fleet(x, n_max) for x in fleet], 0, total)
+    arrivals = sharding.pad_axis(arrivals, 0, total)
+    spec = (sharding.MESH_AXES,)
+    fields = []
+
+    def run_block(coord):
+        out = _trace_grid(names, sharding.shard_block(arrivals, spec, dims, coord),
+                          sharding.shard_block(fleets, spec, dims, coord), workflow, capacity,
+                          fspec, config, "fleet", dev, keep_traces)
+        if not keep_traces:
+            return out
+        fields[:] = out[4].fields()
+        return out[:4] + tuple(out[4].fields().values())
+
+    out = tuple(x[:f] for x in _run_blocks(run_block, mesh, spec))
+    if keep_traces:
+        return out[:4] + (SimTrace(**dict(zip(fields, out[4:]))),)
+    return out
+
+
+def _explicit_mesh(shard) -> bool:
+    return isinstance(shard, tuple) or hasattr(shard, "mesh_dim_names")
+
+
 def _run_grid(names, arrivals, wspec, fleet, workflow, capacity, fspec, config, batch_axis,
-              keep_traces, stream, device, block_size):
-    """Pick the kernel: the stream by default, the trace oracle when traces
-    are kept or ``stream=False``.  ``fleet``/``workflow``/``capacity``/
-    ``fspec`` is a list of rows for the batch axis, else one object.
-    Returns the device tensors (metrics, per-agent latency, throughput,
-    queue[, traces])."""
+              keep_traces, stream, device, block_size, shard=None):
+    """Pick the kernel and its placement: the stream by default, the trace
+    oracle when traces are kept or ``stream=False``; sharded over the
+    ``("data", "grid", "policy")`` mesh when ``shard`` names a mesh or more
+    than one rank is live (``sharding.should_shard``).  ``fleet``/
+    ``workflow``/``capacity``/``fspec`` is a list of rows for the batch
+    axis, else one object.  Returns the device tensors (metrics, per-agent
+    latency, throughput, queue[, traces])."""
     streamed = _streamed(keep_traces, stream)
     if streamed and keep_traces:
         raise ValueError(
@@ -386,9 +535,21 @@ def _run_grid(names, arrivals, wspec, fleet, workflow, capacity, fspec, config, 
         raise ValueError("in-loop synthesis runs in the stream; materialize the specs "
                          "for the trace oracle")
     dev = resolve_device(device)
+    explicit = _explicit_mesh(shard)
+    sharded = sharding.shard_env_enabled() if explicit else sharding.should_shard(shard)
     if streamed:
+        bsz = resolve_block_size(block_size)
+        if sharded:
+            mesh = shard if explicit else sharding.grid_mesh(
+                policy_devices=sharding.policy_mesh_devices(shard), device_type=dev.type)
+            return _run_stream_sharded(names, arrivals, wspec, fleet, workflow, capacity,
+                                       fspec, config, batch_axis, dev, bsz, mesh)
         return _stream_grid(names, arrivals, wspec, fleet, workflow, capacity, fspec, config,
-                            batch_axis, dev, resolve_block_size(block_size))
+                            batch_axis, dev, bsz)
+    if sharded and batch_axis == "fleet":
+        mesh = shard if explicit else sharding.grid_mesh(device_type=dev.type)
+        return _run_trace_sharded(names, arrivals, fleet, workflow, capacity, fspec, config,
+                                  dev, keep_traces, mesh)
     return _trace_grid(names, arrivals, fleet, workflow, capacity, fspec, config, batch_axis,
                        dev, keep_traces)
 
@@ -437,8 +598,11 @@ def sweep(
     ``failure_scenario_library()``): a leading chaos axis, and the result
     carries ``failure_names``.  ``scenarios`` may be ``WorkloadSpec`` rows,
     synthesized on the device inside the loop (``synthesize``).
-    ``shard`` is accepted for the reference's signature; one device runs
-    every grid.
+    Under a process group of more than one rank the scenario axis cuts
+    over the (data × grid) plane of the mesh (``core/sharding.py``);
+    ``shard=False`` (or ``REPRO_SWEEP_SHARD=0``) keeps one rank's path,
+    ``shard="3d"`` also splits the policy stack, and a mesh or a
+    ``(dd, dg, dp)`` tuple names the mesh (module docstring).
     """
     fleet.validate()
     if capacity is not None:
@@ -449,7 +613,7 @@ def sweep(
     scen_names, arrivals, wspec = _prepare_scenarios(
         scenarios, synthesize, _streamed(keep_traces, stream))
     out = _run_grid(names, arrivals, wspec, fleet, None, capacity, fspec, config, batch_axis,
-                    keep_traces, stream, device, block_size)
+                    keep_traces, stream, device, block_size, shard)
     if return_arrays:
         return out
     return _result(out, names, scen_names, config, keep_traces, failure_names=failure_names)
@@ -520,7 +684,7 @@ def sweep_fleets(
     fspec, _ = _resolve_failure_axis(failures, allow_batch=False)
     names = _policy_names(policies)
     out = _run_grid(names, arrivals, wspec, fleets, None, None, fspec, config, "fleet",
-                    keep_traces, stream, device, block_size)
+                    keep_traces, stream, device, block_size, shard)
     if return_arrays:
         return out
     return _result(out, names, scen_names, config, keep_traces, fleet_names=fleet_names)
@@ -586,7 +750,7 @@ def sweep_workflows(
     fspec, _ = _resolve_failure_axis(failures, allow_batch=False)
     names = _policy_names(policies)
     out = _run_grid(names, arrivals, wspec, fleet, workflows, None, fspec, config, "workflow",
-                    keep_traces, stream, device, block_size)
+                    keep_traces, stream, device, block_size, shard)
     if return_arrays:
         return out
     return _result(out, names, scen_names, config, keep_traces, workflow_names=workflow_names)
@@ -646,7 +810,7 @@ def sweep_capacity(
     fspec, _ = _resolve_failure_axis(failures, allow_batch=False)
     names = _policy_names(policies)
     out = _run_grid(names, arrivals, wspec, fleet, None, capacities, fspec, config, "capacity",
-                    keep_traces, stream, device, block_size)
+                    keep_traces, stream, device, block_size, shard)
     if return_arrays:
         return out
     return _result(out, names, scen_names, config, keep_traces, capacity_names=capacity_names)

@@ -36,6 +36,15 @@ def decl(shape, axes, init="normal", scale=None, dtype=None) -> ParamDecl:
     return ParamDecl(tuple(shape), tuple(axes), init, scale, dtype)
 
 
+def is_decl(x) -> bool:
+    return isinstance(x, ParamDecl)
+
+
+def tree_map_decls(fn: Callable, tree):
+    """``fn`` over every ``ParamDecl`` of a declaration tree."""
+    return tree_map(fn, tree)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Map ``fn`` over the leaves of nested dicts/lists (and parallel trees)."""
     if isinstance(tree, dict):
@@ -92,3 +101,7 @@ def init_params(decl_tree, generator: torch.Generator | int = 0,
 
 def param_bytes(decl_tree, bytes_per_el: int = 2) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(decl_tree)) * bytes_per_el
+
+
+def count_params(decl_tree) -> int:
+    return param_bytes(decl_tree, 1)

@@ -18,7 +18,7 @@ jnp = jax.numpy
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import model as jax_model  # noqa: E402
-from repro.models.params import count_params  # noqa: E402
+from repro.models.params import count_params as jax_count_params  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels._common import counting_costs  # noqa: E402
 from repro_torch.kernels.attention import decode_attention as da  # noqa: E402
@@ -28,7 +28,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd import ssd_scan  # noqa: E402
 from repro_torch.launch import dryrun, mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
 from repro_torch.training.optimizer import abstract_opt_state, init_opt_state  # noqa: E402
 
 SHAPES = tuple(M.INPUT_SHAPES)
@@ -102,7 +102,9 @@ def test_abstract_params_and_opt_state_bytes(arch):
     leaves = tree_leaves(params)
     assert all(p.device.type == "meta" and p.dtype == torch.bfloat16 for p in leaves)
     n = sum(p.numel() for p in leaves)
-    assert n == count_params(jax_model.build_model(jax_get_config(arch)).param_decls)
+    assert n == count_params(api.param_decls)
+    assert count_params(api.param_decls) == jax_count_params(
+        jax_model.build_model(jax_get_config(arch)).param_decls)
     assert n == pytest.approx(cfg.param_count, rel=PARAM_COUNT_RTOL.get(arch, 3e-4))
     assert sum(p.numel() * p.element_size() for p in leaves) == 2 * n
     state = abstract_opt_state(params)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or any module of the JAX package."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``examples/*_torch.py`` imports JAX or any module
+of the JAX package."""
 import pathlib
 import re
 
@@ -14,7 +15,10 @@ FORBIDDEN = re.compile(
 
 
 def _port_files():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 5
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + examples)
     assert len(files) > 20
     return files
 

@@ -1,6 +1,7 @@
 """The port's trace simulator (``repro_torch/core/simulator.py``) against
-the JAX package's ``simulate`` and its float64 numpy oracle
-(``simulate_numpy``), for every registered policy: with no serverless
+the JAX package's ``simulate`` and the port's float64 numpy oracle
+(``core/reference_sim.py::simulate_numpy``, held to the reference's own
+in ``tests/test_torch_reference_sim.py``), for every registered policy: with no serverless
 layer, with workflows, with elastic capacity, with failures (two injectors
 and more) and with all three on, at the reference's own tolerances.  Also:
 the feature-off contracts in the port, conservation, misrouted mass, and
@@ -19,8 +20,8 @@ from repro.core import capacity as ref_capacity
 from repro.core import failures as ref_failures
 from repro.core import routing as ref_routing
 from repro.core import simulator as ref_sim
-from repro.core.reference_sim import simulate_numpy
 from repro_torch.core import agents, capacity, failures, routing, simulator, workload
+from repro_torch.core.reference_sim import simulate_numpy
 from repro_torch.core import allocator as alloc
 
 POLICIES = alloc.policy_names()
@@ -81,13 +82,14 @@ def _port(feature, policy):
 
 @functools.lru_cache(maxsize=None)
 def _reference(feature, policy):
-    """(JAX trace fields, numpy-oracle fields) as float64 arrays."""
+    """(JAX trace fields, the port's numpy-oracle fields) as float64 arrays."""
     layers, cfg, arr, _ = FEATURES[feature]
     kw = layers(ref_routing, ref_capacity, ref_failures)
-    fleet = ref_agents.paper_fleet()
-    tr = ref_sim.simulate(policy, jnp.asarray(arr), fleet, ref_sim.SimConfig(**cfg), **kw)
+    tr = ref_sim.simulate(policy, jnp.asarray(arr), ref_agents.paper_fleet(),
+                          ref_sim.SimConfig(**cfg), **kw)
     want = {f: np.asarray(getattr(tr, f), np.float64) for f in FIELDS + FAILURE_FIELDS}
-    oracle = simulate_numpy(policy, arr, fleet, num_gpus=cfg.get("num_gpus", 1.0), **kw)
+    oracle = simulate_numpy(policy, arr, agents.paper_fleet(), num_gpus=cfg.get("num_gpus", 1.0),
+                            **layers(routing, capacity, failures))
     return want, oracle
 
 
