@@ -160,6 +160,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. Examples (``phase_examples``): each ``examples/*_torch.py`` once on the
    card at its defaults through its ``main`` (``example`` lines: wall
    time, every printed number finite; quickstart's Table II anchors).
+10. The mesh: ``decode_merge`` runs the decode kernel over the cache cut
+   into 2, 4 and 16 slot shards (``MERGE_CASES``: granite G4 at 300 and
+   1024 entries, recurrentgemma G16 D256 over a rolled 2048 cache, mixtral
+   over a rolled 4096 cache, full and at 2500), each call given its slot
+   offset and the log-sum-exp output, merged on the card by the
+   log-sum-exp, held against the whole-cache kernel and the plain version
+   (bf16 2e-2, float32 1e-4), with the kernel's time with the log-sum-exp
+   on beside off; ``shard_step`` runs granite-8b (a 512-token prefill and 8
+   decode steps) and mamba2-370m (a 512-token prefill) in bf16 at
+   published widths, and one qwen2-vl-2b train step (1 x 4096, the loss,
+   every gradient, AdamW), as DTensors on a one-rank NCCL (1, 1) mesh
+   under the serve and train rules, against the same runs unsharded: the
+   kernels' launches from 0 must be the unsharded run's, the outputs bit
+   for bit (else within phase 4's 5e-2, the first step that differs
+   named); ``roofline_mesh`` runs the dry-run and the roofline of
+   ``MESH_PAIRS`` on meta over a fake process group (the 16x16 mesh under
+   the default rules; llama3-405b ``decode_32k`` on 2x16x16 under
+   ``serve_v2``): the three terms, collective bytes by kind and axis,
+   per-device peak GiB, ``fits``.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -2650,6 +2669,339 @@ def phase_roofline(decode_rows: list, prefill_row: dict, train_rows: list,
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the mesh (DTensor placements, the decode merge, the sharded counts)
+# ---------------------------------------------------------------------------
+
+# The decode merge's shapes (b, h, kv, d, s_max, cache_len, window): granite
+# G4 at 300 and 1024 entries; recurrentgemma G16 D256 over a full rolled
+# cache of 2048; mixtral over a rolled cache of 4096, full and partly filled
+# (the shards past the length hold no valid entry).
+MERGE_CASES = [
+    (4, 32, 8, 128, 1024, 300, 0),
+    (4, 32, 8, 128, 1024, 1024, 0),
+    (4, 16, 1, 256, RG_WINDOW, RG_WINDOW, RG_WINDOW),
+    (4, 32, 8, 128, MIXTRAL_WINDOW, MIXTRAL_WINDOW, MIXTRAL_WINDOW),
+    (4, 32, 8, 128, MIXTRAL_WINDOW, 2500, MIXTRAL_WINDOW),
+]
+MERGE_SHARDS = (2, 4, 16)
+# The mesh counts: the reference's pairs on its 16x16 mesh under its default
+# rules, and its own multi-pod example (repro/launch/dryrun.py:15-16).
+MESH_PAIRS = [(arch, shape, False, None)
+              for arch in ("qwen2-vl-2b", "granite-8b", "mixtral-8x7b")
+              for shape in ("decode_32k", "prefill_32k")]
+MESH_PAIRS += [("llama3-405b", "decode_32k", True, "serve_v2"),
+               ("granite-8b", "train_4k", False, None)]
+SHARD_TRAIN = ("qwen2-vl-2b", 1, 4096)
+
+
+def check_decode_merge(case, dtype, gpu, seed=0) -> dict:
+    """The decode kernel over the cache cut into ``MERGE_SHARDS`` slot
+    shards, each call given its slot offset and the log-sum-exp output, the
+    shards merged on the card (``ref.merge_decode_shards``, the reduction
+    over the shards in this process); held against the whole-cache kernel
+    and the plain version at phase 3's tolerance, the log-sum-exp against
+    the plain one's.  Times the whole-cache kernel with the log-sum-exp
+    output on beside off (phase 3's rows)."""
+    from repro_torch.kernels.attention import decode_attention as da, ref
+
+    b, h, kv, d, s_max, clen, window = case
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = _randn(gen, (b, h, d), dtype)
+    kc, vc = (_randn(gen, (b, s_max, kv, d), dtype) for _ in range(2))
+    whole, whole_lse = da.decode_attention(q, kc, vc, clen, window=window, return_lse=True)
+    plain, plain_lse = ref.decode_gqa(q, kc, vc, clen, window=window, return_lse=True)
+
+    def over_shards(t, op):  # the all-reduce of n shards held in one process
+        red = t.amax(0) if op == "max" else t.sum(0)
+        return red.expand_as(t)
+
+    # The plain version rounds each score to bf16 before its log-sum-exp
+    # (the kernel keeps them in float32): its log-sum-exp is within 2^-8 of
+    # the largest |score| of the kernel's.
+    scores = torch.einsum("bngd,bknd->bngk", q.float().reshape(b, kv, h // kv, d), kc.float())
+    lse_tol = 1e-4 + (2.0 ** -8 * float(scores.abs().max()) * ref.softmax_scale(d)
+                      if dtype == torch.bfloat16 else 0.0)
+    del scores
+    row = {"phase": "decode_merge", "case": list(case), "dtype": str(dtype).split(".")[-1],
+           "atol": ATOL[dtype], "lse_atol": lse_tol,
+           "whole_vs_plain": float((whole.float() - plain.float()).abs().max()),
+           "lse_whole_vs_plain": float((whole_lse - plain_lse).abs().max())}
+    for n in MERGE_SHARDS:
+        size = s_max // n
+        before = da.launches
+        parts = [da.decode_attention(q, kc[:, i * size:(i + 1) * size], vc[:, i * size:(i + 1) * size],
+                                     clen, window=window, slot_offset=i * size, return_lse=True)
+                 for i in range(n)]
+        launched = da.launches - before
+        empty = sum(da.valid_range(clen - i * size, size, window)[0]
+                    == da.valid_range(clen - i * size, size, window)[1] for i in range(n))
+        out, lse = ref.merge_decode_shards(torch.stack([o for o, _ in parts]),
+                                           torch.stack([s for _, s in parts]), over_shards)
+        out, lse = out[0], lse[0]
+        torch.cuda.synchronize()
+        row[f"n{n}"] = {
+            "vs_whole": float((out.float() - whole.float()).abs().max()),
+            "vs_plain": float((out.float() - plain.float()).abs().max()),
+            "lse_vs_whole": float((lse - whole_lse).abs().max()),
+            "lse_vs_plain": float((lse - plain_lse).abs().max()),
+            # a shard past the length (or before the window) launches nothing
+            "launches": launched, "empty_shards": empty,
+        }
+        check(launched == n - empty or DEVICE == "cpu",
+              f"decode merge {case}: {launched} launches for {n - empty} non-empty shards")
+        for key in ("vs_whole", "vs_plain"):
+            check(row[f"n{n}"][key] <= ATOL[dtype],
+                  f"decode merge {case} {dtype} over {n} shards: {key} {row[f'n{n}'][key]}")
+        check(row[f"n{n}"]["lse_vs_whole"] <= 1e-4 and row[f"n{n}"]["lse_vs_plain"] <= lse_tol,
+              f"decode merge {case} {dtype} over {n} shards: log-sum-exp {row[f'n{n}']}")
+    check(row["whole_vs_plain"] <= ATOL[dtype] and row["lse_whole_vs_plain"] <= lse_tol,
+          f"decode {case} {dtype} with the log-sum-exp: {row}")
+    row["ms"] = time_ms(lambda: da.decode_attention(q, kc, vc, clen, window=window))
+    row["ms_lse"] = time_ms(lambda: da.decode_attention(q, kc, vc, clen, window=window,
+                                                        return_lse=True))
+    row["bound_ms"], row["bound_by"] = bound(gpu, da.cost(b, h, kv, d, s_max, clen, window=window,
+                                                          dtype=dtype, lse=True))
+    emit(row)
+    return row
+
+
+def phase_decode_merge(gpu: str) -> None:
+    for case in MERGE_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_decode_merge(case, dtype, gpu)
+
+
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A one-rank NCCL group at a free local port and its (1, 1)
+    ("data", "model") ``DeviceMesh``; the group is destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{mesh.free_port()}",
+                            rank=0, world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        yield mesh.device_mesh(mesh.MeshDesc(("data", "model"), (1, 1)), "nccl")
+    finally:
+        dist.destroy_process_group()
+
+
+def _placed(dmesh, rules, tree: dict) -> dict:
+    """Model inputs as DTensors of ``sharding.batch_spec``."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding
+
+    pl = sharding.batch_shardings(dmesh, tree, rules)
+    return {k: distribute_tensor(t, dmesh, pl[k]) for k, t in tree.items()}
+
+
+@contextlib.contextmanager
+def _layout(dmesh, rules):
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import sharding
+
+    with implicit_replication(), sharding.activation_layout(dmesh, rules):
+        yield
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _shard_serve(dmesh, arch: str, steps: int, prompt_len: int = 512) -> dict:
+    """``arch`` at published widths in bf16: a prefill of ``prompt_len``
+    tokens and ``steps`` greedy decode steps unsharded, then the same with
+    parameters and inputs as DTensors on ``dmesh`` under the serve rules,
+    fed the unsharded run's tokens; each run's kernel launches counted from
+    0.  Logits held bit for bit, else at phase 4's tolerance (5e-2 of
+    max|logits|) with the first step that differs named."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.attention import decode_attention as da, flash_attention as fa
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import distribute_params
+
+    rules = sharding.SERVE_RULES
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=DEVICE)
+    counters = (fa, da, ssd_scan)
+    with torch.no_grad():
+        for m in counters:
+            m.launches = 0
+        plain_run = _run_path(api, None, params, tokens, steps, 1024)
+        want = {m.__name__.split(".")[-1]: m.launches for m in counters}
+        dparams = distribute_params(params, api.param_decls, dmesh, rules)
+        feed = [_placed(dmesh, rules, {"t": t})["t"] for t in plain_run[1]]
+        t0 = time.perf_counter()
+        with _layout(dmesh, rules):
+            for m in counters:
+                m.launches = 0
+            run = _run_path(api, None, dparams, _placed(dmesh, rules, {"t": tokens})["t"], steps,
+                            1024, feed=feed)
+            got = {m.__name__.split(".")[-1]: m.launches for m in counters}
+            logits = [_full(x) for x in run[0]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gaps = [float((a - b).abs().max()) for a, b in zip(logits, plain_run[0], strict=True)]
+    scale = max(float(b.abs().max()) for b in plain_run[0])
+    bits = all(torch.equal(a, b) for a, b in zip(logits, plain_run[0], strict=True))
+    row = {"phase": "shard_step", "arch": arch, "mode": "serve", "mesh": [1, 1], "rules": "serve",
+           "prompt": prompt_len, "steps": steps, "launches": got, "launches_unsharded": want,
+           "bit_equal": bits, "max_abs_diff": max(gaps), "max_abs_logit": scale,
+           "first_step_that_differs": next((i for i, g in enumerate(gaps) if g), None),
+           "sharded_s": wall}
+    emit(row)
+    check(got == want, f"shard_step {arch}: launches {got}, unsharded {want}")
+    check(all(v > 0 for k, v in got.items() if k in _kernels_of(cfg)),
+          f"shard_step {arch}: a kernel of the path did not launch: {got}")
+    check(bits or max(gaps) <= 5e-2 * scale, f"shard_step {arch}: logits off by {max(gaps)}")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return row
+
+
+def _kernels_of(cfg) -> set:
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = set(layer_kinds(cfg))
+    out = {"ssd_scan"} if "ssm" in kinds else set()
+    if kinds & {"attn_mlp", "attn_moe"}:
+        out |= {"flash_attention", "decode_attention"}
+    return out
+
+
+def _shard_train(dmesh, arch: str, batch: int, seq: int) -> dict:
+    """One ``train_step`` of ``arch`` whole in bf16 at ``batch`` x ``seq``:
+    the loss and every gradient (``loss_and_grads``), then AdamW, unsharded
+    and as DTensors on ``dmesh`` under the train rules from a copy of the
+    same parameters; held bit for bit, else at 5e-2 of each tensor's max
+    with the first that differs named."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.attention import flash_attention as fa
+    from repro_torch.models.model import InputShape, build_model, concrete_inputs
+    from repro_torch.models.params import distribute_params, tree_leaves
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_update, init_opt_state
+    from repro_torch.training.train_step import loss_and_grads
+
+    rules = sharding.TRAIN_RULES
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
+    inputs = concrete_inputs(cfg, InputShape("t", seq, batch, "train"), seed=0, device=DEVICE)
+    fa.launches = 0
+    loss, _, grads = loss_and_grads(api, params, inputs)
+    want_launches = fa.launches
+    dparams = distribute_params(_clone_tree(params), api.param_decls, dmesh, rules)
+    t0 = time.perf_counter()
+    with _layout(dmesh, rules):
+        fa.launches = 0
+        dloss, _, dgrads = loss_and_grads(api, dparams, _placed(dmesh, rules, inputs))
+        got_launches = fa.launches
+        dgrads = [_full(g) for g in dgrads]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = [f"leaf {i} {tuple(g.shape)}" for i, g in enumerate(grads)]
+    grad_gaps = [float((a.float() - b.float()).abs().max()) for a, b in zip(dgrads, grads,
+                                                                             strict=True)]
+    grad_bits = all(torch.equal(a, b) for a, b in zip(dgrads, grads, strict=True))
+    loss_b = _full(dloss)
+    # AdamW over both, from zero moments: the updated parameters.
+    ocfg = OptimizerConfig()
+    _, _, stats = adamw_update(list(grads), init_opt_state(params), params, ocfg)
+    with _layout(dmesh, rules):
+        dstate = init_opt_state(dparams)
+        _, _, dstats = adamw_update([g for g in dgrads], dstate, dparams, ocfg)
+    param_bits = all(torch.equal(_full(a), b) for a, b in zip(tree_leaves(dparams),
+                                                              tree_leaves(params), strict=True))
+    row = {"phase": "shard_step", "arch": arch, "mode": "train", "mesh": [1, 1], "rules": "train",
+           "batch": batch, "seq": seq, "loss": float(loss.detach()), "loss_sharded": float(loss_b.detach()),
+           "loss_bit_equal": bool(torch.equal(loss_b, loss)), "grads_bit_equal": grad_bits,
+           "max_grad_gap": max(grad_gaps),
+           "first_grad_that_differs": next((n for n, g in zip(names, grad_gaps) if g), None),
+           "grad_norm": float(stats["grad_norm"]), "grad_norm_sharded": float(_full(dstats["grad_norm"])),
+           "params_bit_equal_after_adamw": param_bits, "launches": got_launches,
+           "launches_unsharded": want_launches, "sharded_s": wall}
+    emit(row)
+    check(got_launches == want_launches and (got_launches > 0 or DEVICE == "cpu"),
+          f"shard_step {arch} train: {got_launches} flash launches, unsharded {want_launches}")
+    check(row["loss_bit_equal"] or abs(row["loss"] - row["loss_sharded"]) <= 5e-2 * abs(row["loss"]),
+          f"shard_step {arch} train: loss {row['loss_sharded']} vs {row['loss']}")
+    for g, gap in zip(grads, grad_gaps, strict=True):
+        check(gap <= 5e-2 * float(g.float().abs().max()) + 1e-30,
+              f"shard_step {arch} train: a gradient off by {gap}")
+    del params, dparams, grads, dgrads, dstate
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_shard_step() -> dict:
+    """The slice's main path on the card: the model half of the mesh, as
+    DTensors on a (1, 1) NCCL mesh, every kernel on its local shards.
+    Returns each kernel's launches in the sharded runs."""
+    with _one_rank_mesh() as dmesh:
+        rows = [_shard_serve(dmesh, "granite-8b", steps=8)]
+        gc.collect()
+        rows.append(_shard_serve(dmesh, "mamba2-370m", steps=0))
+        gc.collect()
+        train = _shard_train(dmesh, *SHARD_TRAIN)
+        gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"flash_attention": train["launches"], "decode_attention": 0, "ssd": 0}
+    for row in rows:
+        for name, n in row["launches"].items():
+            launches["ssd" if name == "ssd_scan" else name] += n
+    return launches
+
+
+def phase_roofline_mesh(gpu: str) -> None:
+    """The dry-run and the roofline of ``MESH_PAIRS`` on ``meta`` over a
+    fake process group (in ``ROOFLINE_WORKERS`` processes): one
+    ``roofline_mesh`` line per pair with the roofline's three terms and
+    bottleneck, the dry-run's collective bytes by kind and mesh axis, peak
+    GiB per device and ``fits``; the roofline's collective bytes are the
+    dry-run's whole step's, and a collective term is nonzero wherever a
+    collective ran."""
+    from repro_torch.launch import dryrun, mesh, roofline
+
+    card = mesh.hw(gpu)
+    t0 = time.perf_counter()
+    calls = []
+    for arch, shape, multi, rules in MESH_PAIRS:
+        kw = {"card": card, "mesh": "pod", "multi_pod": multi, "rules": rules}
+        calls += [(dryrun.run_one, (arch, shape), kw), (roofline.run_one, (arch, shape), kw)]
+    _, done = dryrun.run_all([], card, ROOFLINE_WORKERS, also=calls)
+    wall = time.perf_counter() - t0
+    for k, (arch, shape, multi, rules) in enumerate(MESH_PAIRS):
+        dr, rl = done[2 * k], done[2 * k + 1]
+        check("error" not in dr and "error" not in rl,
+              f"roofline_mesh {arch} {shape}: {dr.get('error') or rl.get('error')}")
+        coll = dr["per_device"]["collective_bytes"]
+        emit({"phase": "roofline_mesh", "arch": arch, "shape": shape, "mesh": dr["mesh"],
+              "rules": dr["rules"], "chips": dr["chips"], "roofline_s": rl["roofline_s"],
+              "bottleneck": rl["bottleneck"], "dryrun_roofline_s": dr["roofline_s"],
+              "collective_bytes": coll, "flops_per_device": dr["per_device"]["flops"],
+              "bytes_per_device": dr["per_device"]["bytes_accessed"],
+              "peak_gib": dr["per_device"]["peak_bytes"] / 2**30, "fits": dr["fits"],
+              "kernel_calls": dr["per_device"]["kernel_calls"],
+              "useful_flops_ratio": rl["useful_flops_ratio"],
+              "wall_s": [dr["wall_s"], rl["wall_s"]]})
+        check(math.isclose(rl["per_device"]["coll"], coll["total"], rel_tol=1e-9),
+              f"roofline_mesh {arch} {shape}: units' collective bytes {rl['per_device']['coll']} "
+              f"vs the step's {coll['total']}")
+        check((coll["total"] > 0) == (rl["roofline_s"]["collective"] > 0),
+              f"roofline_mesh {arch} {shape}: collective term {rl['roofline_s']['collective']} "
+              f"for {coll['total']} bytes")
+    emit({"phase": "roofline_mesh_total", "pairs": len(MESH_PAIRS), "s": wall})
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the examples
 # ---------------------------------------------------------------------------
 
@@ -2800,6 +3152,12 @@ def main() -> None:
     lap("roofline")
     phase_examples()
     lap("examples")
+    phase_decode_merge(gpu)
+    lap("decode_merge")
+    sharded = phase_shard_step()
+    lap("shard_step")
+    phase_roofline_mesh(gpu)
+    lap("roofline_mesh")
     sources = {
         # the bf16 route, which the summary shape and the fleets run
         "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu",
@@ -2823,6 +3181,8 @@ def main() -> None:
             # 20 training steps of the model whose forward launches the kernel
             "launches_by_training": {arch: t["launches"] for arch, t in trained.items()
                                      if t["kernel"] == name},
+            # phase 10's runs as DTensors on a (1, 1) mesh
+            "launches_by_shard_step": sharded[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["case"], "dtype": row["dtype"],

@@ -16,13 +16,27 @@ On a ``meta`` tensor a wrapper launches nothing: it propagates the kernel's
 output shapes and hands the call's ``Cost`` (the one count of its work, the
 wrapper's ``cost`` function) to every counter that ``counting_costs`` has
 opened (``launch/dryrun.py``).  Its launch count does not move.
+
+On DTensor operands (a model under a mesh, ``distributed/sharding.py``) a
+wrapper takes its sharded route: it reads the operands' placements, reduces
+a pending sum (``Partial``) to the layout the call needs (a reduce-scatter
+or an all-reduce), raises on any placement it does not handle, makes the
+other explicit redistributions its kernel needs (each counted as a
+collective by the dry-run), and runs the
+kernel on the local shards through ``sharded_call``: launched on the card,
+its ``cost`` counted at the local shapes on ``meta``, the plain version on
+the CPU.  No wrapper gathers a whole operand quietly or falls back to the
+plain version.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.placement_types import Partial, Replicate, Shard
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 IMPLS = (None, "cuda", "ref")
@@ -132,3 +146,83 @@ class PlainGrad(torch.autograd.Function):
         for i, g in zip(wanted, got):
             out[i] = g
         return (None, None, None, *out)
+
+
+def shard_index(mesh, dims: list[int]) -> tuple[int, int]:
+    """(count, index) of this rank's shard over the mesh dims ``dims``
+    together, row-major in the mesh's order."""
+    coord = mesh.get_coordinate()
+    n, r = 1, 0
+    for i in dims:
+        n, r = n * mesh.size(i), r * mesh.size(i) + coord[i]
+    return n, r
+
+
+def unit_dims_replicated(t: DTensor) -> DTensor:
+    """``t`` with every placement on a mesh dim of size 1 made
+    ``Replicate`` (a shard or a pending sum over one rank is the whole
+    tensor): the same local tensor, no collective."""
+    mesh = t.device_mesh
+    pl = tuple(Replicate() if mesh.size(i) == 1 else p for i, p in enumerate(t.placements))
+    if pl == tuple(t.placements):
+        return t
+    return DTensor.from_local(t.to_local(), mesh, pl, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def check_placements(name: str, operand: str, t: DTensor, allowed: tuple[int, ...]) -> None:
+    """Raise unless every placement of ``t`` is ``Replicate`` or a
+    ``Shard`` of one of the dims in ``allowed``."""
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in allowed):
+            continue
+        raise ValueError(f"{name}: {operand} has placement {p} on mesh dim {i} "
+                         f"({t.placements}); the sharded route takes Replicate or Shard of "
+                         f"dims {allowed}")
+
+
+def resolve_partial(t: DTensor, targets: dict[int, object]) -> DTensor:
+    """``t`` with each ``Partial`` placement replaced by ``targets[mesh
+    dim]`` (a ``Shard``: reduce-scatter; ``Replicate``: all-reduce)."""
+    pl = [targets[i] if isinstance(p, Partial) else p for i, p in enumerate(t.placements)]
+    return t if tuple(pl) == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
+
+
+def replicate_dims(t: DTensor, dims) -> DTensor:
+    """``t`` with its placements on the mesh dims ``dims`` made
+    ``Replicate`` (an explicit collective; ``t`` itself where none changes)."""
+    pl = [Replicate() if i in dims else p for i, p in enumerate(t.placements)]
+    return t if tuple(pl) == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
+
+
+def partial_on(placements, dims) -> tuple:
+    """``placements`` with ``Partial()`` on the mesh dims ``dims``: the
+    gradient layout of an operand that every rank of those dims reads in
+    part."""
+    return tuple(Partial() if i in dims else p for i, p in enumerate(placements))
+
+
+def even_shards(name: str, t: DTensor) -> None:
+    """Raise unless each sharded dim of ``t`` divides evenly over its mesh dims."""
+    for d in range(t.ndim):
+        n = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                      if isinstance(p, Shard) and p.dim == d)
+        if t.shape[d] % n:
+            raise ValueError(f"{name}: dim {d} of {tuple(t.shape)} is sharded unevenly over {n}")
+
+
+def sharded_call(fn, args: tuple, in_placements: tuple, out_placements: list,
+                 grad_placements=None):
+    """``fn`` on the local shards of ``args`` (``local_map``): every DTensor
+    argument must already have its ``in_placements`` entry (None for a
+    non-tensor), the outputs are DTensors of ``out_placements`` (one
+    placement tuple per output: ``fn`` returns one tensor for a list of
+    one), and autograd hands each input's gradient back with its
+    ``grad_placements`` entry (default: its placements)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    outs = list(out_placements[0]) if len(out_placements) == 1 else tuple(out_placements)
+    return local_map(fn, out_placements=outs, in_placements=in_placements,
+                     in_grad_placements=grad_placements, device_mesh=mesh,
+                     redistribute_inputs=False)(*args)

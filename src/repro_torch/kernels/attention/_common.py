@@ -33,3 +33,18 @@ def check_operands(name: str, tensors: dict[str, torch.Tensor], device_type: str
                 "with 16-byte aligned rows"
             )
 
+
+
+def kv_group_slice(h: int, kv: int, n: int, r: int) -> tuple[int, int]:
+    """[begin, end) of the kv heads that shard ``r`` of ``n`` equal shards
+    of ``h`` query heads reads under GQA (query head i reads kv head
+    i // (h / kv)): whole groups, or the one group a shard of fewer heads
+    lies in.  Raises where a shard's heads straddle two groups."""
+    local, group = h // n, h // kv
+    if h % n or h % kv:
+        raise ValueError(f"{h} heads over {n} shards and {kv} kv heads")
+    if local % group == 0:
+        return r * local // group, (r + 1) * local // group
+    if group % local == 0:
+        return r * local // group, r * local // group + 1
+    raise ValueError(f"{local} local query heads of {h} straddle kv groups of {group}")

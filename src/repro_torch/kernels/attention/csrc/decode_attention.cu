@@ -74,8 +74,11 @@ struct DecodeArgs {
   const int* cache_len;  // (B,) per-example lengths, or null: `len` for all
   int len;
   void* out;
+  float* lse;           // (B, H) float32 log-sum-exp of each row, or null: none written
+  long long lse_sb;
   int B, KV, G, S_max;
   int base, chunk, n_split, window;
+  int slot_offset;      // global slot of entry 0: lengths and the window count global slots
   float scale_log2;  // softmax scale times log2(e): weights are 2^(s − m)
   long long q_sb, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -88,7 +91,7 @@ struct Range {
   int start, end;
 };
 __device__ __forceinline__ Range block_range(const DecodeArgs& a, int b, int split) {
-  const int len = a.cache_len != nullptr ? a.cache_len[b] : a.len;
+  const int len = (a.cache_len != nullptr ? a.cache_len[b] : a.len) - a.slot_offset;
   const int valid_end = min(len, a.S_max);
   const int valid_begin = a.window > 0 ? max(len - a.window, 0) : 0;
   const int c0 = a.base + split * a.chunk;
@@ -146,18 +149,22 @@ __device__ __forceinline__ void cluster_wait_started() {
 // the first block merges from its own shared memory:
 //   out = Σ_s acc_s·2^(m_s − M) / Σ_s l_s·2^(m_s − M).
 // A row with no valid entry (l = 0 everywhere) comes out as zeros, as in
-// the TPU kernel.
+// the TPU kernel.  With `lse` each row's log-sum-exp of its valid scores,
+// ln(2)·(M + log2 L), is written too (−inf for a row with no valid entry).
 template <typename T, int D>
 __device__ __forceinline__ void finish(const DecodeArgs& a, const float* sAcc, const float* sM,
                                        const float* sL, float* gather, int b, int kvh) {
   const int G = a.G;
   const int n_split = a.n_split;
   T* out = static_cast<T*>(a.out) + b * a.o_sb + (long long)kvh * G * a.o_sh;
+  float* lse = a.lse != nullptr ? a.lse + b * a.lse_sb + kvh * G : nullptr;
   if (n_split == 1) {
     for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
       const int g = idx / D;
       out[g * a.o_sh + idx % D] = from_float<T>(sAcc[idx] / fmaxf(sL[g], 1e-30f));
     }
+    if (lse != nullptr && threadIdx.x < G)
+      lse[threadIdx.x] = (sM[threadIdx.x] + log2f(sL[threadIdx.x])) / kLog2e;
     return;
   }
   namespace cg = cooperative_groups;
@@ -186,6 +193,7 @@ __device__ __forceinline__ void finish(const DecodeArgs& a, const float* sAcc, c
       aa += gather[r * G * D + idx] * w;
     }
     out[g * a.o_sh + idx % D] = from_float<T>(aa / fmaxf(ll, 1e-30f));
+    if (lse != nullptr && idx % D == 0) lse[g] = (mm + log2f(ll)) / kLog2e;
   }
 }
 
@@ -689,7 +697,11 @@ extern "C" int repro_decode_max_split(int dtype, int D, int G) {
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
 // cache_len: (B,) int32 on the device, or null, and then `len` holds for
-// every row.  Blocks cover chunks of `chunk` entries starting at `base`,
+// every row.  slot_offset: the global slot of the cache's entry 0 (a slot
+// shard of a sequence-sharded cache); the lengths and the window mask by
+// global slot, and `base` is a local entry.  lse: a (B, H) float32 output
+// of each row's log-sum-exp (row stride lse_sb, heads contiguous), or null.
+// Blocks cover chunks of `chunk` entries starting at `base`,
 // n_split of them per (batch row, kv head), at most
 // repro_decode_max_split(dtype, D, G); G = H / KV <= 16.  Strides
 // are in elements; the last dimension of q, the caches and out is
@@ -700,7 +712,8 @@ extern "C" int repro_decode_attention(
     void* out, int dtype, int B, int H, int KV, int D, int S_max, int base, int chunk,
     int n_split, int window, float scale, long long q_sb, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_sh, void* stream) {
+    long long o_sb, long long o_sh, int slot_offset, float* lse, long long lse_sb,
+    void* stream) {
   repro::DecodeArgs a;
   a.q = q;
   a.k = k_cache;
@@ -727,6 +740,9 @@ extern "C" int repro_decode_attention(
   a.v_sh = v_sh;
   a.o_sb = o_sb;
   a.o_sh = o_sh;
+  a.slot_offset = slot_offset;
+  a.lse = lse;
+  a.lse_sb = lse_sb;
   if (n_split < 1 || n_split > repro::kMaxSplit) return static_cast<int>(cudaErrorInvalidValue);
   const repro::Choice c = repro::choose_d(dtype, D, a.G);
   if (c.kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);

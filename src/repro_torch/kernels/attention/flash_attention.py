@@ -17,19 +17,31 @@ output's shape and counts ``cost`` (``_common.count_meta_call``); under
 autograd the backward is again the plain version's, on meta.
 ``launches`` counts the kernel launches this process made, those of a
 recomputed forward (``torch.utils.checkpoint``) too.
+
+On DTensor operands (``_sharded``) batch and head shards are local.  Under
+GQA each rank's query heads get exactly the kv heads they read: kv heads
+sharded as the query heads are, or replicated K/V sliced to the local
+heads' group.  A sequence-sharded q gathers K/V once along the sequence and
+runs with its shard's ``q_offset``, so the causal band stays right.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (Cost, PlainGrad, count_meta_call, raise_on_error,
-                                         stream_handle)
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.placement_types import Replicate, Shard
+
+from repro_torch.kernels._common import (Cost, PlainGrad, check_placements, count_meta_call,
+                                         even_shards, partial_on, raise_on_error,
+                                         replicate_dims, resolve_partial, shard_index,
+                                         sharded_call, stream_handle, unit_dims_replicated)
 from repro_torch.kernels.attention import ref
-from repro_torch.kernels.attention._common import check_operands
+from repro_torch.kernels.attention._common import check_operands, kv_group_slice
 
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 _ENTRIES = {"wgmma": "repro_flash_attention_sm90", "fma": "repro_flash_attention"}
@@ -83,10 +95,104 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     it with the plain version's backward (``_common.PlainGrad``: recomputed
     from q, k and v; there is no backward kernel)."""
     kwargs = {"causal": causal, "window": window, "q_offset": q_offset}
+    if isinstance(q, DTensor):
+        return _sharded(q, k, v, **kwargs)
     if q.device.type == "cpu":
         return ref.flash_plain(q, k, v, **kwargs)
     kernel = _meta if q.device.type == "meta" else _launch
     return PlainGrad.apply(kernel, ref.flash_plain, kwargs, q, k, v)
+
+
+def _shards(t, dim: int) -> int:
+    """The shards of ``t``'s dim ``dim`` over the mesh."""
+    return math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                     if isinstance(p, Shard) and p.dim == dim)
+
+
+def _resolve_partials(q, k, v):
+    """q, k and v with every pending sum reduced: on a mesh dim where one
+    side is a batch or head ``Shard``, the other's to its counterpart
+    (heads to kv heads where they divide, else replicated), q otherwise to
+    a head shard where the heads divide; where both
+    are pending, q to a head shard and K/V to a kv-head shard where the
+    heads divide, else replicated."""
+    mesh = q.device_mesh
+    tq, tk = {}, {}
+    # The heads (kv heads) left to shard: what the shards so far leave.
+    h = q.shape[2] // _shards(q, 2)
+    kv = k.shape[2] // _shards(k, 2)
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        heads = Shard(2) if h % n == 0 else Replicate()
+        kv_heads = Shard(2) if kv % n == 0 else Replicate()
+        a_shard = a.dim if isinstance(a, Shard) else None
+        b_shard = b.dim if isinstance(b, Shard) else None
+        tq[i] = Shard(b_shard) if b_shard in (0, 2) else heads
+        tk[i] = {0: Shard(0), 2: kv_heads}.get(a_shard, Replicate())
+        if a.is_partial() and b.is_partial():
+            tk[i] = kv_heads if isinstance(heads, Shard) else Replicate()
+        if a.is_partial() and tq[i] == Shard(2):
+            h //= n
+        if b.is_partial() and tk[i] == Shard(2):
+            kv //= n
+    return (resolve_partial(q, tq), resolve_partial(k, tk), resolve_partial(v, tk))
+
+
+def _sharded(q, k, v, *, causal: bool, window: int, q_offset: int):
+    """The DTensor route.  Per mesh dim, (q, k/v) placements handled:
+    (Shard(0), Shard(0)) batch; (Shard(2), Shard(2)) heads; (Shard(2),
+    Replicate) heads over replicated K/V, sliced to the local heads' kv
+    group; (Shard(1), Replicate) a sequence shard of q at its offset;
+    (Replicate, Replicate).  K/V sharded on the sequence are gathered along
+    it first; a pending sum is reduced first (``_resolve_partials``).
+    Anything else raises."""
+    name = "flash_attention"
+    if not isinstance(k, DTensor) or not isinstance(v, DTensor):
+        raise ValueError(f"{name}: q is a DTensor; k and v must be DTensors")
+    q, k, v = (unit_dims_replicated(t) for t in (q, k, v))
+    q, k, v = _resolve_partials(q, k, v)
+    # K/V sharded on the sequence are gathered once along it (a q sequence
+    # shard then runs at its offset; cross attention reads every frame).
+    k, v = (replicate_dims(t, [i for i, p in enumerate(t.placements)
+                               if isinstance(p, Shard) and p.dim == 1]) for t in (k, v))
+    if k.placements != v.placements:
+        raise ValueError(f"{name}: k {k.placements} and v {v.placements} differ")
+    check_placements(name, "q", q, (0, 1, 2))
+    check_placements(name, "k", k, (0, 2))
+    for t in (q, k):
+        even_shards(name, t)
+    mesh = q.device_mesh
+    heads, kv_heads, seq = [], [], []
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
+        qd = a.dim if isinstance(a, Shard) else None
+        kd = b.dim if isinstance(b, Shard) else None
+        if qd == 1 and kd is None:
+            seq.append(i)
+        elif qd == 2 and kd in (2, None):
+            heads.append(i)
+            if kd == 2:
+                kv_heads.append(i)
+        elif qd != kd or qd not in (0, None):
+            raise ValueError(f"{name}: q {q.placements} with k/v {k.placements} on mesh dim {i}")
+    if kv_heads and kv_heads != heads:
+        raise ValueError(f"{name}: kv heads sharded on mesh dims {kv_heads}, query heads on "
+                         f"{heads}")
+    h, kv = q.shape[2], k.shape[2]
+    kv_slice = None
+    if heads and not kv_heads:  # replicated K/V: the local heads' groups
+        kv_slice = kv_group_slice(h, kv, *shard_index(mesh, heads))
+    n_seq, r_seq = shard_index(mesh, seq)
+    offset = q_offset + r_seq * (q.shape[1] // n_seq)
+
+    def local(ql, kl, vl):
+        if kv_slice is not None:
+            kl, vl = kl[:, :, kv_slice[0]:kv_slice[1]], vl[:, :, kv_slice[0]:kv_slice[1]]
+        return flash_attention(ql, kl, vl, causal=causal, window=window, q_offset=offset)
+
+    read_in_part = seq + (heads if kv_slice is not None else [])
+    kv_grad = partial_on(k.placements, read_in_part)
+    return sharded_call(local, (q, k, v), (q.placements, k.placements, v.placements),
+                        [q.placements], (q.placements, kv_grad, kv_grad))
 
 
 def _check(q, k, v, window: int, q_offset: int, device_type: str) -> None:

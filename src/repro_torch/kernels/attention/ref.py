@@ -142,12 +142,17 @@ def flash_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
-def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tensor:
+def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0, slot_offset: int = 0,
+               return_lse: bool = False):
     """One-token decode attention against a (possibly rolling) KV cache.
 
     q: (B, H, D); caches: (B, S_max, KV, D); cache_len: int, () or (B,)
     number of valid entries.  Masking uses entry validity only — relative
-    order is irrelevant to softmax(QKᵀ)V.
+    order is irrelevant to softmax(QKᵀ)V.  ``slot_offset`` is the global
+    slot of the cache's entry 0 (a shard of a sequence-sharded cache): an
+    entry is valid by its global slot.  With ``return_lse`` also the
+    float32 log-sum-exp of each row's valid logits, (B, H), -inf for a row
+    with no valid entry (whose output is then not defined).
     """
     b, h, d = q.shape
     s_max, kv = k_cache.shape[1], k_cache.shape[2]
@@ -160,10 +165,33 @@ def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0) -> torch.Tens
         if cache_len.ndim == 0:
             cache_len = cache_len.expand(b)
     pos = torch.arange(s_max, device=q.device)[None, :]
+    if slot_offset:
+        pos = pos + slot_offset
     valid = pos < cache_len[:, None]
     if window > 0:
         valid &= pos >= (cache_len[:, None] - window)
-    probs = _masked_softmax_(logits, valid[:, None, None, :],
-                             record=records(q, k_cache, v_cache))
+    mask = valid[:, None, None, :]
+    lse = (torch.logsumexp(logits.masked_fill(~mask, -torch.inf), dim=-1).reshape(b, h)
+           if return_lse else None)
+    probs = _masked_softmax_(logits, mask, record=records(q, k_cache, v_cache))
     out = torch.einsum("bngk,bknd->bngd", probs.to(v_cache.dtype), v_cache)
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
+def merge_decode_shards(out, lse, all_reduce):
+    """Flash-decoding merge of the partial decodes of one cache's slot
+    shards: ``out`` (B, H, D) and ``lse`` (B, H) of this shard,
+    ``all_reduce(t, op)`` reducing over the shards (``"max"``, ``"sum"``).
+    One all-reduce of the max, then one of the rescaled sum and output
+    together: B·H·(D + 2)·4 bytes.  Returns the whole cache's (out in
+    ``out``'s dtype, lse), a row with no valid entry anywhere as zeros."""
+    d = out.shape[-1]
+    m = all_reduce(lse, "max")
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    w = torch.exp(lse - m)
+    packed = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    packed = all_reduce(packed, "sum")
+    num, den = packed[..., :d], packed[..., d]
+    merged = (num / den.clamp_min(1e-30)[..., None]).to(out.dtype)
+    return merged, m + torch.log(den)

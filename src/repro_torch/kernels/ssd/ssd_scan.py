@@ -20,6 +20,9 @@ a launch, returns the outputs' shapes and counts ``cost``
 ``launches`` counts the calls that launched a kernel in this process (one
 per call on either route), those of a recomputed forward
 (``torch.utils.checkpoint``) too.
+
+On DTensor operands (``_sharded``) batch and head shards are local (A and
+D follow x's heads); any other sharding of an operand raises.
 """
 from __future__ import annotations
 
@@ -29,8 +32,12 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.placement_types import Replicate, Shard
+
 from repro_torch.kernels._common import (DTYPE_CODES, Cost, PlainGrad, count_meta_call,
-                                         raise_on_error, stream_handle)
+                                         partial_on, raise_on_error, sharded_call,
+                                         stream_handle, unit_dims_replicated)
 from repro_torch.kernels.ssd import ref
 
 HEAD_DIMS = (16, 32, 64)   # P
@@ -157,6 +164,8 @@ def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
     differentiates them with ``ref.ssd_chunked``'s backward
     (``_common.PlainGrad``: recomputed from the inputs; there is no backward
     kernel), for x, dt, A, Bm, Cm, D and h0."""
+    if isinstance(x, DTensor):
+        return _sharded(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)
     # The reference kernel's casts (ssd_scan.py:128-131); h0 is float32 too.
@@ -164,6 +173,66 @@ def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
     h0 = None if h0 is None else h0.float()
     kernel = _meta if x.device.type == "meta" else _launch
     return PlainGrad.apply(kernel, ref.ssd_chunked, {"chunk": chunk}, x, dt, A, Bm, Cm, D, h0)
+
+
+def _sharded(x, dt, A, Bm, Cm, D, h0, *, chunk: int):
+    """The DTensor route: on each mesh dim x is Shard(0) (batch: dt, Bm, Cm
+    and h0 sharded with it), Shard(2) (heads: dt with it, A and D cut to the
+    local heads, Bm and Cm replicated, h0 on its dim 1) or Replicate (all
+    replicated).  Anything else raises."""
+    args = {"x": x, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D}
+    if h0 is not None:
+        args["h0"] = h0
+    for arg, t in args.items():
+        if not isinstance(t, DTensor):
+            raise ValueError(f"ssd: x is a DTensor and {arg} is not")
+        args[arg] = unit_dims_replicated(t)
+    x = args["x"]
+    mesh = x.device_mesh
+    want = {arg: [] for arg in args}
+    y_pl, h_pl, head_dims, batch_dims = [], [], [], []
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            dims = {"x": 0, "dt": 0, "Bm": 0, "Cm": 0, "h0": 0}
+            batch_dims.append(i)
+            y_pl.append(Shard(0))
+            h_pl.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2:
+            dims = {"x": 2, "dt": 2, "A": 0, "D": 0, "h0": 1}
+            head_dims.append(i)
+            y_pl.append(Shard(2))
+            h_pl.append(Shard(1))
+        elif isinstance(p, Replicate):
+            dims = {}
+            y_pl.append(Replicate())
+            h_pl.append(Replicate())
+        else:
+            raise ValueError(f"ssd: x has placement {p} on mesh dim {i}; the sharded route "
+                             "takes Shard(0), Shard(2) or Replicate")
+        for arg in args:
+            want[arg].append(Shard(dims[arg]) if arg in dims else Replicate())
+    for arg in ("A", "D"):  # replicated per-head vectors: the local heads' cut, no collective
+        if args[arg].placements != tuple(want[arg]) and all(
+                isinstance(p, Replicate) for p in args[arg].placements):
+            args[arg] = args[arg].redistribute(mesh, want[arg])
+    for arg, t in args.items():
+        if t.placements != tuple(want[arg]):
+            raise ValueError(f"ssd: {arg} has placements {t.placements} where x "
+                             f"{x.placements} needs {tuple(want[arg])}")
+    names = list(args)
+
+    def local(*ts):
+        kw = dict(zip(names, ts))
+        return ssd(kw["x"], kw["dt"], kw["A"], kw["Bm"], kw["Cm"], kw["D"], kw.get("h0"),
+                   chunk=chunk)
+
+    in_pl = tuple(tuple(want[a]) for a in names)
+    # Every head shard reads all of B and C, and every batch shard all of A
+    # and D: their gradients are partial sums there.
+    summed = {"Bm": head_dims, "Cm": head_dims, "A": batch_dims, "D": batch_dims}
+    grad_pl = tuple(partial_on(pl, summed.get(a, [])) for a, pl in zip(names, in_pl))
+    return sharded_call(local, tuple(args.values()), in_pl, [tuple(y_pl), tuple(h_pl)],
+                        grad_pl)
 
 
 def _meta(x, dt, A, Bm, Cm, D, h0, *, chunk: int):

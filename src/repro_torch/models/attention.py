@@ -10,7 +10,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.placement_types import Replicate, Shard
 
+from repro_torch.distributed.sharding import split_last
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -29,9 +32,9 @@ def attention_decls(cfg: ModelConfig):
 
 def _project_qkv(x, p, cfg: ModelConfig):
     b, s, _ = x.shape
-    q = (x @ p["w_q"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["w_k"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["w_v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = split_last(x @ p["w_q"], b, s, cfg.num_heads, cfg.head_dim)
+    k = split_last(x @ p["w_k"], b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = split_last(x @ p["w_v"], b, s, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -61,7 +64,7 @@ def cross_attention(x, enc_kv, p, cfg: ModelConfig, impl=None):
     """Decoder-to-encoder attention, every query over every encoder frame;
     ``enc_kv`` = (k, v) from ``cross_kv``, computed once per request."""
     b, s, _ = x.shape
-    q = (x @ p["w_q"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = split_last(x @ p["w_q"], b, s, cfg.num_heads, cfg.head_dim)
     k, v = enc_kv
     out = attn_ops.flash_attention(q, k, v, causal=False, impl=impl)
     return out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["w_o"]
@@ -69,8 +72,8 @@ def cross_attention(x, enc_kv, p, cfg: ModelConfig, impl=None):
 
 def cross_kv(enc_out, p, cfg: ModelConfig):
     b, s, _ = enc_out.shape
-    k = (enc_out @ p["w_k"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["w_v"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    k = split_last(enc_out @ p["w_k"], b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = split_last(enc_out @ p["w_v"], b, s, cfg.num_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -131,8 +134,39 @@ def _update_cache(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Te
     """cache (B,S,KV,Dh) <- new (B,KV,Dh) at position ``slot``, in place.
 
     Like ``lax.dynamic_update_slice``, a slot past the end is clamped to the
-    last entry.
+    last entry.  A DTensor cache is written shard by shard
+    (``_update_sharded_cache``).
     """
     slot = min(max(int(slot), 0), cache.shape[1] - 1)
+    if isinstance(cache, DTensor):
+        return _update_sharded_cache(cache, new, slot)
     cache[:, slot].copy_(new)
+    return cache
+
+
+def _update_sharded_cache(cache: DTensor, new: DTensor, slot: int) -> DTensor:
+    """The DTensor form of ``_update_cache``: ``new`` is laid out as the
+    cache's row (batch and kv-head shards kept, replicated over the mesh
+    dims that shard the slots), and each rank writes the slot into its own
+    shard where the slot lies in it.  The cache is never gathered."""
+    want = []
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim in (0, 2):
+            want.append(Shard(0 if p.dim == 0 else 1))
+        elif isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim == 1):
+            want.append(Replicate())
+        else:
+            raise ValueError(f"_update_cache: cache placement {p} on mesh dim {i}")
+    if new.placements != tuple(want):
+        new = new.redistribute(cache.device_mesh, want)
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate()
+    local = cache.to_local()
+    lo = 0
+    for i, p in enumerate(cache.placements):  # the shard's first slot, row-major over dims
+        if isinstance(p, Shard) and p.dim == 1:
+            lo = lo * mesh.size(i) + coord[i]
+    lo *= local.shape[1]
+    if lo <= slot < lo + local.shape[1]:
+        local[:, slot - lo].copy_(new.to_local())
     return cache

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain, gather_weights
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.attention import KVCacheSpec
@@ -71,28 +72,30 @@ def encode(params, frame_embeds: torch.Tensor, cfg: ModelConfig, impl=None) -> t
     positions = _positions(b, s, frame_embeds.device)
 
     def block(x, p):
+        p = gather_weights(p)
         h, _ = attn.self_attention(layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
                                    positions, causal=False, impl=impl)
-        x = x + h
-        return x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
-                              cfg.ffn_type)
+        x = constrain(x + h)
+        return constrain(x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
+                                        cfg.ffn_type))
 
-    x = frame_embeds.to(params["enc_norm"]["scale"].dtype)
+    x = constrain(frame_embeds.to(params["enc_norm"]["scale"].dtype))
     for p in params["enc_blocks"]:
         x = rematerialized(block, cfg)(x, p)
-    return layers.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return layers.rms_norm(x, gather_weights(params["enc_norm"]), cfg.norm_eps)
 
 
 def _dec_block(x, enc_out, p, cfg: ModelConfig, positions, impl):
     """One decoder block over the whole sequence: (x, (k, v), (cross k, v))."""
+    p = gather_weights(p)
     h, kv = attn.self_attention(layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["self_attn"],
                                 cfg, positions, causal=True, impl=impl)
-    x = x + h
+    x = constrain(x + h)
     ckv = attn.cross_kv(enc_out, p["cross_attn"], cfg)
-    x = x + attn.cross_attention(layers.rms_norm(x, p["ln_x"], cfg.norm_eps), ckv,
-                                 p["cross_attn"], cfg, impl=impl)
+    x = constrain(x + attn.cross_attention(layers.rms_norm(x, p["ln_x"], cfg.norm_eps), ckv,
+                                           p["cross_attn"], cfg, impl=impl))
     x = x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.ffn_type)
-    return x, kv, ckv
+    return constrain(x), kv, ckv
 
 
 def forward_train(params, batch, cfg: ModelConfig, aux_weight: float = 0.0, impl=None):
@@ -102,14 +105,15 @@ def forward_train(params, batch, cfg: ModelConfig, aux_weight: float = 0.0, impl
     enc_out = encode(params, batch["frontend_embeds"], cfg, impl)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = layers.embed(tokens, params["embed"])
+    emb = gather_weights(params["embed"])
+    x = constrain(layers.embed(tokens, emb))
     positions = _positions(b, s, x.device)
     block = rematerialized(lambda xx, eo, p: _dec_block(xx, eo, p, cfg, positions, impl)[0],
                            cfg)
     for p in params["dec_blocks"]:
         x = block(x, enc_out, p)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = layers.cross_entropy_loss(layers.unembed(x, params["embed"]), batch["labels"])
+    x = layers.rms_norm(x, gather_weights(params["final_norm"]), cfg.norm_eps)
+    loss = layers.cross_entropy_loss(layers.unembed(x, emb), batch["labels"])
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
 
 
@@ -136,7 +140,8 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl=None):
     enc_out = encode(params, batch["frontend_embeds"], cfg, impl)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = layers.embed(tokens, params["embed"])
+    emb = gather_weights(params["embed"])
+    x = constrain(layers.embed(tokens, emb))
     positions = _positions(b, s, x.device)
     caches = {"self": [], "cross_k": [], "cross_v": []}
     for p in params["dec_blocks"]:
@@ -144,8 +149,8 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl=None):
         caches["self"].append({"k": _pad_to(k, max_len), "v": _pad_to(v, max_len)})
         caches["cross_k"].append(ck)
         caches["cross_v"].append(cv)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params["embed"])[:, 0]
+    x = layers.rms_norm(x, gather_weights(params["final_norm"]), cfg.norm_eps)
+    logits = layers.unembed(x[:, -1:], emb)[:, 0]
     return logits, caches
 
 
@@ -153,15 +158,18 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig, max_len: int,
     """token (B,) -> (logits (B, V), caches): the self caches are updated in
     place, the cross K/V are static."""
     spec = KVCacheSpec(size=max_len)
-    x = layers.embed(token[:, None], params["embed"])
+    emb = gather_weights(params["embed"])
+    x = constrain(layers.embed(token[:, None], emb))
     for p, cache, ck, cv in zip(params["dec_blocks"], caches["self"], caches["cross_k"],
                                 caches["cross_v"], strict=True):
+        p = gather_weights(p)
         h, _ = attn.decode_self_attention(layers.rms_norm(x, p["ln1"], cfg.norm_eps), cache,
                                           p["self_attn"], cfg, pos, spec, impl=impl)
-        x = x + h
-        x = x + attn.cross_attention(layers.rms_norm(x, p["ln_x"], cfg.norm_eps), (ck, cv),
-                                     p["cross_attn"], cfg, impl=impl)
-        x = x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.ffn_type)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = layers.unembed(x, params["embed"])
+        x = constrain(x + h)
+        x = constrain(x + attn.cross_attention(layers.rms_norm(x, p["ln_x"], cfg.norm_eps),
+                                               (ck, cv), p["cross_attn"], cfg, impl=impl))
+        x = constrain(x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
+                                     cfg.ffn_type))
+    x = layers.rms_norm(x, gather_weights(params["final_norm"]), cfg.norm_eps)
+    logits = layers.unembed(x, emb)
     return logits[:, 0], caches

@@ -25,7 +25,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import channelwise, reduce_partial
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import decl
 
@@ -51,6 +53,8 @@ def rglru_decls(cfg: ModelConfig):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv, x (B,S,W), w (K,W): out_t = Σ_k w_k x_{t-K+1+k}."""
+    if isinstance(x, DTensor):
+        return channelwise(_causal_conv, x, w, b)
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -63,8 +67,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 def _rglru_gates(xb: torch.Tensor, p) -> tuple[torch.Tensor, torch.Tensor]:
     """(a, b) of the linear recurrence h_t = a_t h + b_t, float32."""
     xf = xb.float()
-    r = torch.sigmoid(xf @ p["w_rec_gate"].float() + p["b_rec_gate"].float())
-    i = torch.sigmoid(xf @ p["w_input_gate"].float() + p["b_input_gate"].float())
+    # Under a mesh each product's pending sum is reduced before its bias is
+    # added (torch 2.11's DTensor cannot turn the bias's shard into one).
+    r = torch.sigmoid(reduce_partial(xf @ p["w_rec_gate"].float()) + p["b_rec_gate"].float())
+    i = torch.sigmoid(reduce_partial(xf @ p["w_input_gate"].float()) + p["b_input_gate"].float())
     log_a = -_RGLRU_C * F.softplus(p["lambda_param"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
@@ -75,7 +81,9 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0: the inclusive
     scan of the combine (a_l, b_l) ∘ (a_r, b_r) = (a_l·a_r, b_l·a_r + b_r),
     in ⌈log₂ S⌉ rounds (Hillis–Steele: round d combines each step with the
-    one d before it)."""
+    one d before it).  DTensors run on their local shards."""
+    if isinstance(a, DTensor):
+        return channelwise(linear_scan, a, b)
     s = a.shape[1]
     d = 1
     while d < s:

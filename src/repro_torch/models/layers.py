@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import Partial
 
+from repro_torch.distributed.sharding import reduce_partial
 from repro_torch.models.params import decl
 
 
@@ -113,7 +116,44 @@ def embed_decls(padded_vocab: int, d_model: int, tie: bool):
 
 
 def embed(tokens: torch.Tensor, p) -> torch.Tensor:
-    return p["embedding"][tokens]
+    table = p["embedding"]
+    if isinstance(table, DTensor):
+        return _sharded_embed(tokens, table)
+    return table[tokens]
+
+
+def _sharded_embed(tokens, table):
+    """The lookup on local shards (DTensor's own index and embedding
+    strategies fail in the backward in one torch version or another): the
+    table's vocab shards stay, any other shard of it is gathered; each
+    device looks its tokens up in its vocab rows, zero elsewhere, a pending
+    sum over the vocab dims; the table's gradient is a pending sum over the
+    tokens' shards."""
+    from repro_torch.kernels._common import shard_index, sharded_call
+
+    mesh = table.device_mesh
+    t_pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+                 for q in table.placements)
+    if tuple(table.placements) != t_pl:
+        table = table.redistribute(mesh, t_pl)
+    vocab = [i for i, q in enumerate(t_pl) if isinstance(q, Shard)]
+    tok_pl = tuple(Replicate() if i in vocab or not isinstance(q, Shard) else q
+                   for i, q in enumerate(tokens.placements))
+    if tuple(tokens.placements) != tok_pl:
+        tokens = tokens.redistribute(mesh, tok_pl)
+    n, r = shard_index(mesh, vocab)
+    rows = table.shape[0] // n
+
+    def local(tl, wl):
+        if not vocab:
+            return wl[tl]
+        ids = tl - r * rows
+        inside = (ids >= 0) & (ids < rows)
+        return wl[torch.where(inside, ids, 0)] * inside[..., None].to(wl.dtype)
+
+    out_pl = tuple(Partial() if i in vocab else q for i, q in enumerate(tok_pl))
+    grad_pl = tuple(Partial() if isinstance(q, Shard) else t_pl[i] for i, q in enumerate(tok_pl))
+    return sharded_call(local, (tokens, table), (tok_pl, t_pl), [out_pl], (tok_pl, grad_pl))
 
 
 def unembed(x: torch.Tensor, p) -> torch.Tensor:
@@ -131,6 +171,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     mask = labels >= 0
     safe = torch.where(mask, labels, 0)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    # A vocab-sharded gather is a masked pending sum: reduce it while it
+    # still has the mask's shape (identity for a plain tensor).
+    gold = reduce_partial(torch.gather(logits, -1, safe[..., None].long()))[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1)

@@ -69,6 +69,48 @@ def abstract_params(decl_tree, dtype=torch.bfloat16):
                     decl_tree)
 
 
+def distribute_abstract(decl_tree, mesh, rules, dtype=torch.bfloat16):
+    """``abstract_params`` as DTensors on ``mesh``: each leaf's placements
+    are ``distributed.sharding``'s for its declaration under ``rules``, and
+    its local tensor is a ``meta`` tensor of the shard's shape (no memory
+    on any rank).  Parameters, caches (``cache_decls``) and any other
+    declaration tree alike."""
+    from repro_torch.distributed import sharding
+
+    def make(d: ParamDecl):
+        pl = sharding.decl_placements(mesh, d, rules)
+        return abstract_dtensor(mesh, pl, d.shape, d.dtype or dtype)
+
+    return tree_map(make, decl_tree)
+
+
+def distribute_params(tree, decl_tree, mesh, rules):
+    """The tensors of ``tree`` (its declarations in ``decl_tree``) as
+    DTensors over ``mesh`` placed as ``distribute_abstract`` places them
+    (``torch.distributed.tensor.distribute_tensor``: each rank keeps its
+    shard of rank 0's tensor)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding
+
+    return tree_map(lambda t, d: distribute_tensor(t, mesh, sharding.decl_placements(mesh, d, rules)),
+                    tree, decl_tree)
+
+
+def abstract_dtensor(mesh, placements, shape, dtype):
+    """A DTensor of global ``shape`` with ``placements`` over ``mesh``
+    whose local tensor is on ``meta``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+
+    local = torch.empty(sharding.local_shape(mesh, placements, shape), dtype=dtype,
+                        device="meta")
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
 def init_params(decl_tree, generator: torch.Generator | int = 0,
                 dtype=torch.bfloat16, device="cuda"):
     """Materialize parameters on ``device`` from a seeded generator.

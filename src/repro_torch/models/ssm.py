@@ -13,8 +13,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.distributed.sharding import channelwise
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import decl
 
@@ -50,6 +52,8 @@ def _split(zxbcdt, cfg: ModelConfig):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv, x (B,S,C), w (W,C): out_t = Σ_k w_k x_{t-W+1+k}."""
+    if isinstance(x, DTensor):
+        return channelwise(_causal_conv, x, w, b)
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)

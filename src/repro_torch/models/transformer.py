@@ -20,6 +20,12 @@ its decode with a capacity factor of 2.0, as the reference's do
 the layers by ``forward_logits`` and weighted into the training loss;
 ``prefill`` returns (logits, caches), as the reference's ``ModelApi`` does.
 
+Under a mesh (DTensor parameters, ``distributed/sharding.py``) the residual
+stream is laid out by ``sharding.constrain`` after the embedding and after
+every residual add, and each block's weights (and the embedding's) are gathered
+over the batch axes where they are used (``sharding.gather_weights``, FSDP);
+outside a mesh both return their argument.
+
 With ``cfg.remat`` a training forward recomputes each superblock in the
 backward (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
 around its scan body); the tail blocks keep their activations, as there.
@@ -27,8 +33,10 @@ around its scan body); the tail blocks keep their activations, as there.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain, gather_weights
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, layers, moe, ssm
 from repro_torch.models.attention import KVCacheSpec
@@ -115,12 +123,13 @@ def _block_fwd(kind: str, x, p, cfg: ModelConfig, positions, impl):
     the Switch aux loss of an ``attn_moe`` block (0.0 for the others), and
     (k, v) for the attention blocks, (conv_tail, final_state) for ``ssm``
     and ``rglru_mlp``."""
+    p = gather_weights(p)
     if kind in ("attn_mlp", "attn_moe"):
         h, kv = attn.self_attention(
             layers.rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg, positions,
             causal=True, window=_window_for(cfg), impl=impl,
         )
-        x = x + h
+        x = constrain(x + h)
         y = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         if kind == "attn_mlp":
             return x + layers.ffn(y, p["mlp"], cfg.ffn_type), 0.0, kv
@@ -133,7 +142,7 @@ def _block_fwd(kind: str, x, p, cfg: ModelConfig, positions, impl):
     if kind == "rglru_mlp":
         h, state = griffin.recurrent_block(layers.rms_norm(x, p["ln1"], cfg.norm_eps),
                                            p["rec"], cfg)
-        x = x + h
+        x = constrain(x + h)
         return x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
                               cfg.ffn_type), 0.0, state
     raise ValueError(kind)
@@ -162,6 +171,7 @@ def _run_stack(x, blocks, cfg: ModelConfig, positions, impl):
         aux = torch.zeros((), dtype=torch.float32, device=xx.device)
         for i in range(p):
             xx, a, _ = _block_fwd(kinds[first + i], xx, blocks[first + i], cfg, positions, impl)
+            xx = constrain(xx)
             aux = aux + a
         return xx, aux
 
@@ -171,6 +181,7 @@ def _run_stack(x, blocks, cfg: ModelConfig, positions, impl):
         aux = aux + a
     for i in range(n_super * p, len(kinds)):
         x, a, _ = _block_fwd(kinds[i], x, blocks[i], cfg, positions, impl)
+        x = constrain(x)
         aux = aux + a
     return x, aux
 
@@ -221,6 +232,15 @@ def cache_decls(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return {"blocks": [_block_cache_decls(kind, cfg, batch, spec) for kind in layer_kinds(cfg)]}
 
 
+def _roll(x, shift: int):
+    """``torch.roll(x, shift, dims=1)``; a DTensor as the same two slices
+    concatenated (torch 2.11's DTensor has no strategy for ``aten.roll``)."""
+    if not isinstance(x, DTensor):
+        return torch.roll(x, shift, dims=1)
+    n = x.shape[1]
+    return torch.cat([x[:, n - shift:], x[:, :n - shift]], dim=1)
+
+
 def _seed_to_cache(kind: str, seed, spec: KVCacheSpec, s: int) -> dict:
     """Convert a full-sequence cache seed into the decode cache layout."""
     if kind in ("ssm", "rglru_mlp"):
@@ -231,7 +251,7 @@ def _seed_to_cache(kind: str, seed, spec: KVCacheSpec, s: int) -> dict:
         if s >= spec.size:
             x = x[:, s - spec.size:s]
             if spec.window > 0:  # rolling layout: token t lives at t % size
-                x = torch.roll(x, s % spec.size, dims=1)
+                x = _roll(x, s % spec.size)
             return x.contiguous()
         pad = x.new_zeros((x.shape[0], spec.size - s, *x.shape[2:]))
         return torch.cat([x, pad], dim=1)
@@ -246,12 +266,13 @@ def forward_logits(params, batch, cfg: ModelConfig, impl=None):
     """Full-sequence logits (B, S, V) and the summed MoE aux loss."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = layers.embed(tokens, params["embed"])
-    x = _apply_frontend(x, batch)
+    emb = gather_weights(params["embed"])
+    x = layers.embed(tokens, emb)
+    x = constrain(_apply_frontend(x, batch))
     positions = _positions(batch, cfg, b, s, x.device)
     x, aux = _run_stack(x, params["blocks"], cfg, positions, impl)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.unembed(x, params["embed"]), aux
+    x = layers.rms_norm(x, gather_weights(params["final_norm"]), cfg.norm_eps)
+    return layers.unembed(x, emb), aux
 
 
 def forward_train(params, batch, cfg: ModelConfig, aux_weight: float = 0.01, impl=None):
@@ -270,15 +291,17 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl=None):
     tokens = batch["tokens"]
     b, s = tokens.shape
     spec = cache_spec(cfg, max_len)
-    x = layers.embed(tokens, params["embed"])
-    x = _apply_frontend(x, batch)
+    emb = gather_weights(params["embed"])
+    x = layers.embed(tokens, emb)
+    x = constrain(_apply_frontend(x, batch))
     positions = _positions(batch, cfg, b, s, x.device)
     seeds = []
     for kind, p in zip(layer_kinds(cfg), params["blocks"], strict=True):
         x, _aux, seed = _block_fwd(kind, x, p, cfg, positions, impl)
+        x = constrain(x)
         seeds.append(_seed_to_cache(kind, seed, spec, s))
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = layers.unembed(x[:, -1:], params["embed"])[:, 0]
+    x = layers.rms_norm(x, gather_weights(params["final_norm"]), cfg.norm_eps)
+    logits = layers.unembed(x[:, -1:], emb)[:, 0]
     return logits, {"blocks": seeds}
 
 
@@ -286,12 +309,13 @@ def _block_decode(kind: str, x, cache, p, cfg: ModelConfig, pos: int, spec: KVCa
                   impl):
     """One token through one block.  Returns (x, cache): an attention cache is
     updated in place, an ssm or rglru cache is replaced."""
+    p = gather_weights(p)
     if kind in ("attn_mlp", "attn_moe"):
         h, cache = attn.decode_self_attention(
             layers.rms_norm(x, p["ln1"], cfg.norm_eps), cache, p["attn"], cfg, pos, spec,
             impl=impl,
         )
-        x = x + h
+        x = constrain(x + h)
         y = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         if kind == "attn_mlp":
             return x + layers.ffn(y, p["mlp"], cfg.ffn_type), cache
@@ -304,7 +328,7 @@ def _block_decode(kind: str, x, cache, p, cfg: ModelConfig, pos: int, spec: KVCa
     if kind == "rglru_mlp":
         h, cache = griffin.recurrent_decode_step(layers.rms_norm(x, p["ln1"], cfg.norm_eps),
                                                  cache, p["rec"], cfg)
-        x = x + h
+        x = constrain(x + h)
         return x + layers.ffn(layers.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
                               cfg.ffn_type), cache
     raise ValueError(kind)
@@ -317,12 +341,14 @@ def decode_step(params, caches, token, pos: int, cfg: ModelConfig, max_len: int,
     the new ssm and rglru caches.
     """
     spec = cache_spec(cfg, max_len)
-    x = layers.embed(token[:, None], params["embed"])
+    emb = gather_weights(params["embed"])
+    x = constrain(layers.embed(token[:, None], emb))
     blocks = []
     for kind, p, cache in zip(layer_kinds(cfg), params["blocks"], caches["blocks"],
                               strict=True):
         x, cache = _block_decode(kind, x, cache, p, cfg, pos, spec, impl)
+        x = constrain(x)
         blocks.append(cache)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = layers.unembed(x, params["embed"])
+    x = layers.rms_norm(x, gather_weights(params["final_norm"]), cfg.norm_eps)
+    logits = layers.unembed(x, emb)
     return logits[:, 0], {"blocks": blocks}

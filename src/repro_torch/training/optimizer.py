@@ -19,8 +19,9 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import abstract_dtensor, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,19 +48,38 @@ def schedule(step: torch.Tensor, cfg: OptimizerConfig) -> torch.Tensor:
 
 
 def init_opt_state(params) -> dict:
-    """m and v as float32 zeros beside each parameter, step 0 (int32)."""
+    """m and v as float32 zeros beside each parameter, step 0 (int32); for
+    DTensor parameters m and v take each parameter's placements and the
+    step is replicated."""
     leaves = tree_leaves(params)
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=leaves[0].device)}
+    if leaves and isinstance(leaves[0], DTensor):
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh = leaves[0].device_mesh
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+        step = distribute_tensor(torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+                                 mesh, (Replicate(),) * mesh.ndim)
+    else:
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        step = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": step}
 
 
 def abstract_opt_state(abstract_params) -> dict:
     """``init_opt_state``'s tree as ``meta`` tensors: float32 m and v of
-    each parameter's shape, an int32 step."""
-    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")  # noqa: E731
+    each parameter's shape, an int32 step.  For DTensor parameters m and v
+    take each parameter's placements and the step is replicated (the
+    reference's ``opt_sh``, ``repro/launch/dryrun.py:113-117``)."""
+    leaves = tree_leaves(abstract_params)
+    if leaves and isinstance(leaves[0], DTensor):
+        mesh = leaves[0].device_mesh
+        f32 = lambda p: abstract_dtensor(mesh, p.placements, p.shape, torch.float32)  # noqa: E731
+        step = abstract_dtensor(mesh, (Replicate(),) * mesh.ndim, (), torch.int32)
+    else:
+        f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")  # noqa: E731
+        step = torch.empty((), dtype=torch.int32, device="meta")
     return {"m": tree_map(f32, abstract_params), "v": tree_map(f32, abstract_params),
-            "step": torch.empty((), dtype=torch.int32, device="meta")}
+            "step": step}
 
 
 def global_norm(tree) -> torch.Tensor:

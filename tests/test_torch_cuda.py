@@ -171,6 +171,74 @@ def test_decode_kernel_with_an_int_length(case, dtype, card):
                                want.float(), atol=ATOL[dtype], rtol=0)
 
 
+def _lse_tol(q, kc, dtype):
+    """The plain version rounds each bf16 score before its log-sum-exp (the
+    kernel keeps float32 scores): within 2^-8 of the largest |score|."""
+    if dtype == torch.float32:
+        return 1e-4
+    b, h, d = q.shape
+    kv = kc.shape[2]
+    s = torch.einsum("bngd,bknd->bngk", q.float().reshape(b, kv, h // kv, d), kc.float())
+    return 1e-4 + 2.0 ** -8 * float(s.abs().max()) * ref.softmax_scale(d)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", DECODE_INT_CASES)
+def test_decode_kernel_log_sum_exp(case, dtype, card):
+    """With ``return_lse`` the kernel also writes each row's float32
+    log-sum-exp, the plain version's within its bf16 score rounding; the
+    output is the same bits as without it, int and tensor lengths alike."""
+    b, h, kv, d, s_max, clen, window = case
+    q = _randn(card, (b, h, d), dtype)
+    kc, vc = (_randn(card, (b, s_max, kv, d), dtype) for _ in range(2))
+    want, want_lse = ref.decode_gqa(q, kc, vc, clen, window=window, return_lse=True)
+    for length in (clen, torch.full((b,), clen, dtype=torch.int32, device="cuda")):
+        before = da.launches
+        got, lse = da.decode_attention(q, kc, vc, length, window=window, return_lse=True)
+        assert da.launches == before + 1 and lse.dtype == torch.float32 and lse.shape == (b, h)
+        assert torch.equal(got, da.decode_attention(q, kc, vc, length, window=window))
+        torch.testing.assert_close(lse, want_lse, atol=_lse_tol(q, kc, dtype), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", [
+    (4, 32, 8, 128, 1024, 300, 0),        # granite G4, shards past the length empty
+    (4, 16, 1, 256, 2048, 2048, 2048),    # recurrentgemma: rolled, full
+    (4, 32, 8, 128, 4096, 2500, 4096),    # mixtral: rolled, partly filled
+    (2, 8, 2, 128, 4096, 3000, 500),      # a window inside the cache
+])
+@pytest.mark.parametrize("n", [2, 4, 16])
+def test_decode_kernel_slot_shards_merge_to_the_whole(case, n, dtype, card):
+    """The cache cut into ``n`` slot shards, each call given its slot
+    offset: a shard with no valid entry launches nothing (zeros, −inf), and
+    the log-sum-exp merge of the shards is the whole-cache kernel's output
+    within the dtype's tolerance and its log-sum-exp within 1e-4."""
+    b, h, kv, d, s_max, clen, window = case
+    q = _randn(card, (b, h, d), dtype)
+    kc, vc = (_randn(card, (b, s_max, kv, d), dtype) for _ in range(2))
+    whole, whole_lse = da.decode_attention(q, kc, vc, clen, window=window, return_lse=True)
+    size = s_max // n
+    outs, lses = [], []
+    for i in range(n):
+        lo, hi = da.valid_range(clen - i * size, size, window)
+        before = da.launches
+        o, s = da.decode_attention(q, kc[:, i * size:(i + 1) * size],
+                                   vc[:, i * size:(i + 1) * size], clen, window=window,
+                                   slot_offset=i * size, return_lse=True)
+        assert da.launches == before + (hi > lo or i == 0)
+        if hi == lo:
+            assert not o.any() and bool((s == -torch.inf).all())
+        outs.append(o)
+        lses.append(s)
+
+    def over_shards(t, op):
+        return (t.amax(0) if op == "max" else t.sum(0)).expand_as(t)
+
+    out, lse = ref.merge_decode_shards(torch.stack(outs), torch.stack(lses), over_shards)
+    torch.testing.assert_close(out[0].float(), whole.float(), atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse[0], whole_lse, atol=1e-4, rtol=0)
+
+
 def test_decode_is_one_launch_per_call(card):
     """One device kernel per call with an int length: no fill, no combine."""
     from torch.profiler import ProfilerActivity, profile
