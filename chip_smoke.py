@@ -163,7 +163,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 10. The mesh: ``decode_merge`` runs the decode kernel over the cache cut
    into 2, 4 and 16 slot shards (``MERGE_CASES``: granite G4 at 300 and
    1024 entries, recurrentgemma G16 D256 over a rolled 2048 cache, mixtral
-   over a rolled 4096 cache, full and at 2500), each call given its slot
+   over a rolled 4096 cache, full and at 2500, a window of 500 inside a
+   4096 cache, where shard 0 is empty at 2 shards), each call given its slot
    offset and the log-sum-exp output, merged on the card by the
    log-sum-exp, held against the whole-cache kernel and the plain version
    (bf16 2e-2, float32 1e-4), with the kernel's time with the log-sum-exp
@@ -2675,13 +2676,16 @@ def phase_roofline(decode_rows: list, prefill_row: dict, train_rows: list,
 # The decode merge's shapes (b, h, kv, d, s_max, cache_len, window): granite
 # G4 at 300 and 1024 entries; recurrentgemma G16 D256 over a full rolled
 # cache of 2048; mixtral over a rolled cache of 4096, full and partly filled
-# (the shards past the length hold no valid entry).
+# (the shards past the length hold no valid entry); a window of 500 inside a
+# cache of 4096, where slot shard 0 holds no valid entry yet launches (slot
+# offset 0 is the whole-cache call's path), its first entry past its own end.
 MERGE_CASES = [
     (4, 32, 8, 128, 1024, 300, 0),
     (4, 32, 8, 128, 1024, 1024, 0),
     (4, 16, 1, 256, RG_WINDOW, RG_WINDOW, RG_WINDOW),
     (4, 32, 8, 128, MIXTRAL_WINDOW, MIXTRAL_WINDOW, MIXTRAL_WINDOW),
     (4, 32, 8, 128, MIXTRAL_WINDOW, 2500, MIXTRAL_WINDOW),
+    (2, 8, 2, 128, 4096, 3000, 500),
 ]
 MERGE_SHARDS = (2, 4, 16)
 # The mesh counts: the reference's pairs on its 16x16 mesh under its default
@@ -2733,8 +2737,8 @@ def check_decode_merge(case, dtype, gpu, seed=0) -> dict:
                                      clen, window=window, slot_offset=i * size, return_lse=True)
                  for i in range(n)]
         launched = da.launches - before
-        empty = sum(da.valid_range(clen - i * size, size, window)[0]
-                    == da.valid_range(clen - i * size, size, window)[1] for i in range(n))
+        empty = [i for i in range(n) if len(range(*da.valid_range(clen - i * size, size, window)))
+                 == 0]
         out, lse = ref.merge_decode_shards(torch.stack([o for o, _ in parts]),
                                            torch.stack([s for _, s in parts]), over_shards)
         out, lse = out[0], lse[0]
@@ -2744,11 +2748,19 @@ def check_decode_merge(case, dtype, gpu, seed=0) -> dict:
             "vs_plain": float((out.float() - plain.float()).abs().max()),
             "lse_vs_whole": float((lse - whole_lse).abs().max()),
             "lse_vs_plain": float((lse - plain_lse).abs().max()),
-            # a shard past the length (or before the window) launches nothing
-            "launches": launched, "empty_shards": empty,
+            # a shard past the length (or before the window) launches
+            # nothing, but for shard 0; an empty one writes zeros (the plain
+            # version: any finite values) and a log-sum-exp of -inf
+            "launches": launched, "empty_shards": len(empty),
         }
-        check(launched == n - empty or DEVICE == "cpu",
-              f"decode merge {case}: {launched} launches for {n - empty} non-empty shards")
+        skipped = sum(1 for i in empty if i > 0)
+        check(launched == n - skipped or DEVICE == "cpu",
+              f"decode merge {case}: {launched} launches for {n - skipped} shards")
+        for i in empty:
+            o, s = parts[i]
+            check(bool((s == -torch.inf).all())
+                  and (bool(o.isfinite().all()) if DEVICE == "cpu" else not o.any()),
+                  f"decode merge {case} {dtype}: empty shard {i} of {n} wrote a value")
         for key in ("vs_whole", "vs_plain"):
             check(row[f"n{n}"][key] <= ATOL[dtype],
                   f"decode merge {case} {dtype} over {n} shards: {key} {row[f'n{n}'][key]}")
@@ -2880,8 +2892,9 @@ def _shard_train(dmesh, arch: str, batch: int, seq: int) -> dict:
     """One ``train_step`` of ``arch`` whole in bf16 at ``batch`` x ``seq``:
     the loss and every gradient (``loss_and_grads``), then AdamW, unsharded
     and as DTensors on ``dmesh`` under the train rules from a copy of the
-    same parameters; held bit for bit, else at 5e-2 of each tensor's max
-    with the first that differs named."""
+    same parameters.  The loss, every gradient, the gradients' norm and
+    every parameter after AdamW are held bit for bit, else at 5e-2 of each
+    tensor's max with the first that differs named."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding
     from repro_torch.kernels.attention import flash_attention as fa
@@ -2904,39 +2917,56 @@ def _shard_train(dmesh, arch: str, batch: int, seq: int) -> dict:
         fa.launches = 0
         dloss, _, dgrads = loss_and_grads(api, dparams, _placed(dmesh, rules, inputs))
         got_launches = fa.launches
-        dgrads = [_full(g) for g in dgrads]
+        full_grads = [_full(g) for g in dgrads]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     names = [f"leaf {i} {tuple(g.shape)}" for i, g in enumerate(grads)]
-    grad_gaps = [float((a.float() - b.float()).abs().max()) for a, b in zip(dgrads, grads,
+    grad_gaps = [float((a.float() - b.float()).abs().max()) for a, b in zip(full_grads, grads,
                                                                              strict=True)]
-    grad_bits = all(torch.equal(a, b) for a, b in zip(dgrads, grads, strict=True))
+    grad_bits = all(torch.equal(a, b) for a, b in zip(full_grads, grads, strict=True))
     loss_b = _full(dloss)
-    # AdamW over both, from zero moments: the updated parameters.
+    # AdamW over both, from zero moments, the sharded one on the DTensor
+    # gradients, moments and parameters: the updated parameters.
     ocfg = OptimizerConfig()
     _, _, stats = adamw_update(list(grads), init_opt_state(params), params, ocfg)
     with _layout(dmesh, rules):
         dstate = init_opt_state(dparams)
-        _, _, dstats = adamw_update([g for g in dgrads], dstate, dparams, ocfg)
-    param_bits = all(torch.equal(_full(a), b) for a, b in zip(tree_leaves(dparams),
-                                                              tree_leaves(params), strict=True))
+        _, _, dstats = adamw_update(list(dgrads), dstate, dparams, ocfg)
+    new_params = [(_full(a), b) for a, b in zip(tree_leaves(dparams), tree_leaves(params),
+                                                strict=True)]
+    param_bits = all(torch.equal(a, b) for a, b in new_params)
+    param_gaps = [float((a.float() - b.float()).abs().max()) for a, b in new_params]
+    norm, dnorm = stats["grad_norm"], _full(dstats["grad_norm"])
     row = {"phase": "shard_step", "arch": arch, "mode": "train", "mesh": [1, 1], "rules": "train",
            "batch": batch, "seq": seq, "loss": float(loss.detach()), "loss_sharded": float(loss_b.detach()),
            "loss_bit_equal": bool(torch.equal(loss_b, loss)), "grads_bit_equal": grad_bits,
            "max_grad_gap": max(grad_gaps),
            "first_grad_that_differs": next((n for n, g in zip(names, grad_gaps) if g), None),
-           "grad_norm": float(stats["grad_norm"]), "grad_norm_sharded": float(_full(dstats["grad_norm"])),
-           "params_bit_equal_after_adamw": param_bits, "launches": got_launches,
+           "grad_norm": float(norm), "grad_norm_sharded": float(dnorm),
+           "grad_norm_bit_equal": bool(torch.equal(dnorm, norm)),
+           "params_bit_equal_after_adamw": param_bits, "max_param_gap": max(param_gaps),
+           "first_param_that_differs": next((f"leaf {i} {tuple(b.shape)}"
+                                             for i, ((_, b), g) in enumerate(zip(new_params,
+                                                                                 param_gaps))
+                                             if g), None),
+           "launches": got_launches,
            "launches_unsharded": want_launches, "sharded_s": wall}
     emit(row)
     check(got_launches == want_launches and (got_launches > 0 or DEVICE == "cpu"),
           f"shard_step {arch} train: {got_launches} flash launches, unsharded {want_launches}")
     check(row["loss_bit_equal"] or abs(row["loss"] - row["loss_sharded"]) <= 5e-2 * abs(row["loss"]),
           f"shard_step {arch} train: loss {row['loss_sharded']} vs {row['loss']}")
-    for g, gap in zip(grads, grad_gaps, strict=True):
+    for name, g, gap in zip(names, grads, grad_gaps, strict=True):
         check(gap <= 5e-2 * float(g.float().abs().max()) + 1e-30,
-              f"shard_step {arch} train: a gradient off by {gap}")
-    del params, dparams, grads, dgrads, dstate
+              f"shard_step {arch} train: gradient {name} off by {gap}")
+    check(row["grad_norm_bit_equal"] or abs(row["grad_norm_sharded"] - row["grad_norm"])
+          <= 5e-2 * row["grad_norm"],
+          f"shard_step {arch} train: grad norm {row['grad_norm_sharded']} vs {row['grad_norm']}")
+    # AdamW's update is lr-sized: a parameter is held to 5e-2 of its own max.
+    for i, ((_, b), gap) in enumerate(zip(new_params, param_gaps)):
+        check(param_bits or gap <= 5e-2 * float(b.float().abs().max()) + 1e-30,
+              f"shard_step {arch} train: AdamW's parameter leaf {i} {tuple(b.shape)} off by {gap}")
+    del params, dparams, grads, dgrads, full_grads, dstate, new_params
     torch.cuda.empty_cache()
     return row
 

@@ -65,6 +65,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.distributed import sharding
 from repro_torch.kernels._common import counting_costs
 from repro_torch.launch import mesh
+from repro_torch.launch.mesh import hw
 from repro_torch.models.model import (INPUT_SHAPES, InputShape, build_model, decode_token_specs,
                                       input_specs, shape_applicable)
 from repro_torch.models.params import abstract_dtensor, abstract_params, distribute_abstract
@@ -441,10 +442,6 @@ def mesh_of(mesh_name: str | None, multi_pod: bool = False) -> "mesh.MeshDesc | 
     return mesh.make_production_mesh(multi_pod=multi_pod)
 
 
-def _card() -> dict:
-    return mesh.hw()
-
-
 def run_one(arch: str, shape, *, card: dict | None = None, mesh: str | None = None,
             multi_pod: bool = False, rules: str | None = None) -> dict:
     """The dry-run of one pair: on one card, or on the production mesh
@@ -457,7 +454,7 @@ def run_one(arch: str, shape, *, card: dict | None = None, mesh: str | None = No
     desc = mesh_of(mesh, multi_pod)
     cfg = get_config(arch)
     t0 = time.time()
-    card = card or _card()
+    card = card or hw()
     if desc is None:
         m = measure(cfg, shape)
         m2 = measure(cfg, shape, second_batch(shape.global_batch))

@@ -49,7 +49,7 @@ import time
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun, mesh
-from repro_torch.launch.mesh import device_mesh, roofline_terms
+from repro_torch.launch.mesh import device_mesh, hw, roofline_terms
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (INPUT_SHAPES, InputShape, build_model, input_specs,
@@ -156,7 +156,7 @@ def run_one(arch: str, shape, *, card: dict | None = None, num_layers: int | Non
     if not ok:
         return {"arch": arch, "shape": shape.name, "skipped": why}
     desc = dryrun.mesh_of(mesh, multi_pod)
-    card = card or dryrun._card()
+    card = card or hw()
     t0 = time.time()
     dmesh, rule_set = None, None
     if desc is not None:

@@ -33,7 +33,6 @@ around its scan body); the tail blocks keep their activations, as there.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import constrain, gather_weights
@@ -233,10 +232,8 @@ def cache_decls(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 def _roll(x, shift: int):
-    """``torch.roll(x, shift, dims=1)``; a DTensor as the same two slices
-    concatenated (torch 2.11's DTensor has no strategy for ``aten.roll``)."""
-    if not isinstance(x, DTensor):
-        return torch.roll(x, shift, dims=1)
+    """``torch.roll(x, shift, dims=1)`` as two slices concatenated, the same
+    bits (torch 2.11's DTensor has no strategy for ``aten.roll``)."""
     n = x.shape[1]
     return torch.cat([x[:, n - shift:], x[:, :n - shift]], dim=1)
 
