@@ -16,7 +16,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 flash kernel (D = 32, 64, 128 with one and two consumer warpgroups,
    D = 256 with one) must have ``HGMMA`` (``wgmma``), and each bf16 SSD
    kernel both ``HGMMA`` (C·Bᵀ) and ``HMMA`` (``mma.sync``, the other
-   products).
+   products), and each bf16 kernel of flash attention's backward (dK/dV and
+   dQ, D = 32 to 256) ``HMMA``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the shape cases of ``tests/test_kernels.py`` (attention: float32
    atol 1e-4, bfloat16 atol 2e-2; SSD: float32 atol 1e-4, bfloat16 atol
@@ -36,16 +37,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    4096) and decode over a full rolling cache of 2048; seamless-m4t-large-
    v2's encoder (4096 frames, no mask) and cross attention in decode (one
    query row over 64 and 4096 frames), both dtypes.
-3b. Gradients: the flash and SSD kernels inside autograd
-   (``_common.PlainGrad``: the kernel's forward, the plain version's
-   backward) against the plain versions' own autograd with the same
-   cotangent, both dtypes, at the shape cases of ``tests/test_kernels.py``
-   and at the training shapes (flash at qwen2-vl-2b's 2 x 4096 tokens, 12 q
-   / 2 kv heads; SSD at mamba2-370m's 4 x 4096, with and without ``h0``),
-   each input's largest gap held at 1e-5 of its max|g|; at the training
-   shapes three times: the kernel forward with the plain backward, the
-   plain forward and backward, and SDPA's forward and backward as a
-   yardstick.  The decode kernel must refuse an operand that requires grad.
+3b. Gradients, both dtypes, at the shape cases of ``tests/test_kernels.py``
+   and at the training shapes: flash attention's backward kernel through
+   ``FlashAttentionFn`` (also at head dim 256, qwen2-vl-2b's 2 x 4096
+   tokens, 12 q / 2 kv heads, and recurrentgemma-9b's 1 x 4096, 16 q heads
+   of 256 on 1, window 2048): one forward and one backward launch a step,
+   the output and log-sum-exp at phase 3's tolerance, dq, dk and dv against
+   the plain gradient (float32 within 1e-4 of max|g|; bf16 against the
+   float32 gradient of the upcast inputs, within twice the bf16 plain
+   route's own gap or one bf16 step), two backward calls bit-equal; timed
+   at the training shapes: forward and backward through the kernels, the
+   old route (the kernel forward with the plain backward, ``PlainGrad``)
+   and SDPA's, and the backward alone beside the plain one and SDPA's.
+   The SSD kernel inside ``_common.PlainGrad`` (the kernel's forward, the
+   plain version's backward) against the plain version's own autograd with
+   the same cotangent (mamba2-370m's 4 x 4096, with and without ``h0``),
+   each input's largest gap held at 1e-5 of its max|g|, timed beside the
+   plain forward and backward.  The decode kernel must refuse an operand
+   that requires grad.
 4. Full-width models, kernels vs plain versions, a prefill and decode steps
    each, compared step by step, at published widths with seeded random
    weights: granite-8b in bfloat16 and mamba2-370m in float32 (held) and in
@@ -121,7 +130,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    whole (4 x 4096), 20 steps each of the launcher's AdamW on
    ``SyntheticTokens``, one ``train_step`` line a step (loss, grad_norm,
    lr, host-clock step time after a sync, tokens/s, kernel launches: each
-   layer in the forward and in remat's recompute, peak GiB, ``mfu``); the
+   layer in the forward and in remat's recompute, flash's backward kernel
+   once per attention layer, peak GiB, ``mfu``); the
    loss must stay finite and drop by at least 0.3; on mamba2-370m a
    checkpoint saved after step 10 and restored into a fresh tree must
    resume step 11 bit for bit.
@@ -139,7 +149,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    a Table II ``simulate`` under ``adaptive`` and of the Table II grid's
    stream (``sweep_profile``); last, one training step of each whole model
    of the train phase (``profile_train``: busy share over its median step,
-   the kernel's device time, the plain backward's, the forward's and the
+   the kernel's device time, flash's backward kernel's and its share, the
+   plain backward's (none of it flash attention's), the forward's and the
    optimizer's, and the logits and CE timed alone at the step's shapes).
    A ``time`` line after each group of phases gives the script's time so
    far.
@@ -415,12 +426,17 @@ def phase_build() -> None:
     # D = 32, 64, 128 with one and two consumers; D = 256 with one.
     flash = {k: c.get("HGMMA", 0) for k, c in counts.items() if "flash_sm90_kernel" in k}
     ssd = {k: c for k, c in counts.items() if "ssd_sm90_kernel" in k}
+    # The backward's dK/dV and dQ passes in bf16, D = 32, 64, 128, 256.
+    bwd = {k: c.get("HMMA", 0) for k, c in counts.items()
+           if "dkdv_mma_kernel" in k or "dq_mma_kernel" in k}
     print(f"sass: {sum(c.get('HGMMA', 0) for c in counts.values())} HGMMA instructions, "
           f"{sum(flash.values())} in {len(flash)} bf16 flash kernels; bf16 SSD kernels "
-          f"(HGMMA, HMMA): {sorted((c.get('HGMMA', 0), c.get('HMMA', 0)) for c in ssd.values())}",
-          flush=True)
+          f"(HGMMA, HMMA): {sorted((c.get('HGMMA', 0), c.get('HMMA', 0)) for c in ssd.values())}; "
+          f"{sum(bwd.values())} HMMA in {len(bwd)} bf16 flash backward kernels", flush=True)
     check(len(flash) == 7 and all(flash.values()),
           "the bf16 flash kernels do not run on the tensor cores (no HGMMA in their SASS)")
+    check(len(bwd) == 8 and all(bwd.values()),
+          f"the bf16 flash backward kernels do not run on the tensor cores: {bwd}")
     check(len(ssd) == 4 and all(c.get("HGMMA", 0) and c.get("HMMA", 0) for c in ssd.values()),
           f"the bf16 SSD kernels do not run on the tensor cores: {ssd}")
 
@@ -688,22 +704,38 @@ def phase_kernels(gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # The training shapes: qwen2-vl-2b's attention (12 q / 2 kv heads of 128,
-# causal) at 2 x 4096 tokens; mamba2-370m's SSD (32 heads of P 64, N 128,
-# chunk 128) at 4 x 4096, without and with h0.
+# causal) at 2 x 4096 tokens; recurrentgemma-9b's local attention (16 q
+# heads of 256 on 1, window 2048) at 1 x 4096; mamba2-370m's SSD (32 heads
+# of P 64, N 128, chunk 128) at 4 x 4096, without and with h0.
 GRAD_FLASH_TRAIN = [(2, 4096, 4096, 12, 2, 128, True, 0)]
+GRAD_FLASH_RG = [(1, 4096, 4096, 16, 1, 256, True, RG_WINDOW)]
 GRAD_SSD_TRAIN = [(4, 4096, 32, 64, 128, 128, False), (4, 4096, 32, 64, 128, 128, True)]
-# The Function's backward is the plain version's, recomputed from the same
-# inputs, and both runs get the same cotangent: the gradients can differ
-# only where the card sums in another order.  Each input's largest gap over
-# its gradient's max|g|.
+# The SSD Function's backward is the plain version's, recomputed from the
+# same inputs, and both runs get the same cotangent: the gradients can
+# differ only where the card sums in another order.  Each input's largest
+# gap over its gradient's max|g|.
 GRAD_RTOL = 1e-5
+# Flash attention's backward is a kernel.  float32: against
+# ref.flash_bwd_plain (the same sums in another order, over S_kv keys and
+# the G heads of a group), each input's largest gap over its max|g| within
+# FLASH_GRAD_F32_RTOL.  bf16: against the float32 plain gradient of the same
+# inputs upcast, within the larger of twice the bf16 plain route's own gap
+# to it and one bf16 step (BF16_STEP of max|g|): the kernel rounds P and dS
+# to bf16 for the tensor cores, the plain route rounds its logits, P, dP and
+# dS.
+FLASH_GRAD_F32_RTOL = 1e-4
+BF16_STEP = 2.0 ** -7
+
+
+def _rel_gap(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
 
 
 def _grad_gaps(out, want, inputs, plain_inputs, cots) -> list:
     got = torch.autograd.grad(out, inputs, cots)
     ref_grads = torch.autograd.grad(want, plain_inputs, cots)
-    return [float((g.float() - w.float()).abs().max() / w.float().abs().max())
-            for g, w in zip(got, ref_grads)]
+    return [_rel_gap(g, w) for g, w in zip(got, ref_grads)]
 
 
 def _grad_bound(cost) -> tuple[float, str]:
@@ -715,6 +747,14 @@ def _grad_bound(cost) -> tuple[float, str]:
 
 
 def check_flash_grad(case, dtype, timed: bool) -> dict:
+    """The forward kernel's output and log-sum-exp, and the backward
+    kernel's dq, dk and dv through ``FlashAttentionFn`` (one launch of each)
+    against the tolerances above; a second backward call on the same saved
+    tensors must give the same bits.  Timed: the kernels' forward and
+    backward beside the old route (the kernel's forward with the plain
+    backward, ``PlainGrad``) and SDPA's, and the backward kernel alone
+    beside ``ref.flash_bwd_plain`` and SDPA's backward alone."""
+    from repro_torch.kernels._common import PlainGrad
     from repro_torch.kernels.attention import flash_attention as fa, ref
 
     b, s_q, s_kv, h, kv, d, causal, window = case
@@ -723,28 +763,74 @@ def check_flash_grad(case, dtype, timed: bool) -> dict:
     cot = _randn(gen, (b, s_q, h, d), dtype)
     kw = dict(causal=causal, window=window, q_offset=s_kv - s_q if causal else 0)
     leaves = [x.clone().requires_grad_() for x in qkv]
-    plain = [x.clone().requires_grad_() for x in qkv]
+    before = (fa.launches, fa.bwd_launches)
     out = fa.flash_attention(*leaves, **kw)
     check(out.grad_fn is not None, "flash_attention: the kernel's output is cut off from the graph")
-    want = ref.flash_plain(*plain, **kw)
-    err = float((out.detach().float() - want.detach().float()).abs().max())
-    gaps = _grad_gaps(out, want, leaves, plain, cot)
+    got = torch.autograd.grad(out, leaves, cot)
+    check((fa.launches - before[0], fa.bwd_launches - before[1]) == (1, 1),
+          f"flash_attention {case}: {fa.launches - before[0]} forward and "
+          f"{fa.bwd_launches - before[1]} backward launches for one step, expected 1 and 1")
+    up = [x.float() for x in qkv]
+    out32, lse32 = ref.flash_plain_lse(*up, **kw)
+    err = float((out.detach().float() - ref.flash_plain(*qkv, **kw).float()).abs().max())
+    k_out, k_lse = fa._launch(*qkv, lse=True, **kw)
+    lse_err = float((k_lse - lse32).abs().max())
+    # Two calls of the backward kernel on the same saved tensors: equal bits.
+    first = fa.flash_attention_bwd(*qkv, k_out, k_lse, cot, **kw)
+    second = fa.flash_attention_bwd(*qkv, k_out, k_lse, cot, **kw)
+    same_bits = all(torch.equal(x, y) for x, y in zip(first, second))
+    if dtype == torch.float32:
+        want = ref.flash_bwd_plain(*qkv, out32, lse32, cot, **kw)
+        tols = [FLASH_GRAD_F32_RTOL] * 3
+        plain_gaps = None
+    else:
+        want = ref.flash_bwd_plain(*up, out32, lse32, cot.float(), **kw)
+        plain = [x.clone().requires_grad_() for x in qkv]
+        plain_gaps = [_rel_gap(g, w) for g, w in zip(
+            torch.autograd.grad(ref.flash_plain(*plain, **kw), plain, cot), want)]
+        tols = [max(2 * p, BF16_STEP) for p in plain_gaps]
+    del out32
+    gaps = [_rel_gap(g, w) for g, w in zip(got, want)]
     row = {"kernel": "flash_attention", "case": list(case), "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err, "atol": ATOL[dtype],
-           "grad_gap": dict(zip(("q", "k", "v"), gaps)), "rtol": GRAD_RTOL}
+           "max_abs_err": err, "atol": ATOL[dtype], "lse_max_abs_err": lse_err,
+           "grad_gap": dict(zip(("q", "k", "v"), gaps)),
+           "grad_tol": dict(zip(("q", "k", "v"), tols)),
+           "bf16_plain_gap": None if plain_gaps is None else dict(zip(("q", "k", "v"), plain_gaps)),
+           "grad_max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got, want)),
+           "bwd_bits_equal": same_bits}
+    del got, want, first, second
     if timed:
+        from repro_torch.launch import mesh
+
         bhsd = [x.transpose(1, 2).detach().requires_grad_() for x in qkv]
         cot_t = cot.transpose(1, 2)
-        row["bound_ms"], row["bound_by"] = _grad_bound(fa.cost(
-            b, s_q, s_kv, h, kv, d, dtype=dtype, **kw))
+        lib_args = ({"is_causal": True} if causal and window == 0 and s_q == s_kv else
+                    {"mask": ref.attention_mask(s_q, s_kv, device=DEVICE, **kw)})
+        cost = fa.cost(b, s_q, s_kv, h, kv, d, dtype=dtype, **kw)
+        row["bound_ms"], row["bound_by"] = _grad_bound(cost)
+        bwd_cost = fa.cost_backward(b, s_q, s_kv, h, kv, d, dtype=dtype, **kw)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = mesh.bound_ms(bwd_cost, mesh.hw())
+        old = [x.clone().requires_grad_() for x in qkv]
+        o_lib = _sdpa(*bhsd, **lib_args)
         row.update({
-            "kernel_fwd_plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
+            "kernel_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
                 fa.flash_attention(*leaves, **kw), leaves, cot), iters=5, warmup=1),
-            "plain_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
-                ref.flash_plain(*plain, **kw), plain, cot), iters=5, warmup=1),
+            "old_route_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                PlainGrad.apply(fa._launch, ref.flash_plain, kw, *old), old, cot),
+                iters=5, warmup=1),
             "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
-                _sdpa(*bhsd, is_causal=True), bhsd, cot_t), iters=5, warmup=1),
+                _sdpa(*bhsd, **lib_args), bhsd, cot_t), iters=5, warmup=1),
+            "bwd_ms": time_ms(lambda: fa.flash_attention_bwd(*qkv, k_out, k_lse, cot, **kw),
+                              iters=5, warmup=1),
+            "bwd_plain_ms": time_ms(lambda: ref.flash_bwd_plain(*qkv, k_out, k_lse, cot, **kw),
+                                    iters=3, warmup=1),
+            "sdpa_bwd_ms": time_ms(lambda: torch.autograd.grad(o_lib, bhsd, cot_t,
+                                                               retain_graph=True),
+                                   iters=5, warmup=1),
         })
+        row["bwd_tflops"] = bwd_cost.flops[dtype] / row["bwd_ms"] * 1e-9
+        del o_lib
     return row
 
 
@@ -822,18 +908,21 @@ def check_decode_refuses_grad() -> None:
 
 
 def phase_gradients() -> dict:
-    """The Functions' outputs and gradients against the plain versions' own,
-    both dtypes, at tests/test_kernels.py's cases and the training shapes.
-    The backward recomputes the plain version from the inputs and never
-    reads the kernel's output, so the output is held on its own, within
-    phase 3's tolerances.  Timed at the training shapes: the kernel forward
-    with the plain backward, the plain forward and backward, and SDPA's
-    forward and backward as a yardstick.  The decode wrapper must refuse an
-    operand that requires grad."""
+    """Gradients through the kernels' autograd Functions, both dtypes, at
+    tests/test_kernels.py's cases, head dim 256 and the training shapes.
+    Flash attention runs its backward kernel (``check_flash_grad``); the
+    SSD scan's Function recomputes the plain version from the inputs and
+    never reads the kernel's output, so its output is held on its own,
+    within phase 3's tolerances.  Timed at the training shapes: forward
+    and backward through the Function, the old route or the plain version,
+    and SDPA as a yardstick.  The decode wrapper must refuse an operand
+    that requires grad."""
     rows = {}
-    runs = ([(check_flash_grad, c, dt, False) for c in FLASH_CASES for dt in ATOL]
+    runs = ([(check_flash_grad, c, dt, False) for c in FLASH_CASES + D256_FLASH_CASES
+             for dt in ATOL]
             + [(check_ssd_grad, c, dt, False) for c in SSD_CASES for dt in SSD_ATOL]
-            + [(check_flash_grad, c, dt, True) for c in GRAD_FLASH_TRAIN for dt in ATOL]
+            + [(check_flash_grad, c, dt, True) for c in GRAD_FLASH_TRAIN + GRAD_FLASH_RG
+               for dt in ATOL]
             + [(check_ssd_grad, c, dt, True) for c in GRAD_SSD_TRAIN for dt in SSD_ATOL])
     for fn, case, dtype, timed in runs:
         row = fn(case, dtype, timed)
@@ -841,14 +930,23 @@ def phase_gradients() -> dict:
         err = row.get("excess_over_rtol", row["max_abs_err"])
         check(err <= row["atol"] and row.get("h_max_abs_err", 0.0) <= row.get("h_atol", 0.0),
               f"{row['kernel']} {case} {row['dtype']} forward: max abs err {row['max_abs_err']}")
-        worst = max(row["grad_gap"].values())
-        check(worst <= GRAD_RTOL,
-              f"{row['kernel']} {case} {row['dtype']} gradients: {row['grad_gap']}")
+        if row["kernel"] == "flash_attention":
+            check(row["lse_max_abs_err"] <= ATOL[dtype],
+                  f"flash_attention {case} {row['dtype']}: log-sum-exp {row['lse_max_abs_err']}")
+            check(all(row["grad_gap"][x] <= row["grad_tol"][x] for x in "qkv"),
+                  f"flash_attention {case} {row['dtype']} gradients: {row['grad_gap']} over "
+                  f"{row['grad_tol']}")
+            check(row["bwd_bits_equal"], f"flash_attention {case} {row['dtype']}: two backward "
+                  "calls gave different bits")
+        else:
+            worst = max(row["grad_gap"].values())
+            check(worst <= GRAD_RTOL,
+                  f"{row['kernel']} {case} {row['dtype']} gradients: {row['grad_gap']}")
         if timed:
             rows[(row["kernel"], tuple(case), row["dtype"])] = row
+        gc.collect()
+        torch.cuda.empty_cache()
     check_decode_refuses_grad()
-    gc.collect()
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -2039,7 +2137,9 @@ TRAIN_CKPT_AFTER = 10  # mamba2-370m: save after step 10, resume step 11
 
 def _train_kernel(cfg):
     """The kernel module a model's training forward launches, and its launches
-    per step (each layer once in the forward and once in remat's recompute)."""
+    per step (each layer once in the forward and once in remat's recompute).
+    Flash attention's backward kernel runs once per attention layer a step
+    (``_bwd_launches``)."""
     from repro_torch.kernels.attention import flash_attention as fa
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.models import transformer
@@ -2101,6 +2201,7 @@ def phase_train_compare(arch: str) -> dict:
     not at rounding level."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.attention import flash_attention as fa
     from repro_torch.launch.train import opt_config
     from repro_torch.models.model import build_model
     from repro_torch.models.params import tree_leaves
@@ -2122,14 +2223,14 @@ def phase_train_compare(arch: str) -> dict:
         state = init_opt_state(params)
         step = build_train_step(api, opt_config(TRAIN_LR, TRAIN_CMP_STEPS), impl=impl)
         metrics = []
-        module.launches = 0
+        module.launches = fa.bwd_launches = 0
         for b in batches:
             if impl == "ref":  # the mask's gradients: no kernel runs on this route
                 plain_grads.append(_loss_grads(api, params, b, "ref"))
             params, state, m = step(params, state, b)
             metrics.append({k: float(v) for k, v in m.items()})
-        runs[impl] = (params, metrics, module.launches)
-    (kp, km, kl), (rp, rm, rl) = runs[None], runs["ref"]
+        runs[impl] = (params, metrics, module.launches, fa.bwd_launches)
+    (kp, km, kl, kb), (rp, rm, rl, rb) = runs[None], runs["ref"]
     gaps = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for a, b in zip(km, rm))
             for k in ("loss", "ce", "aux", "grad_norm")}
     held_gap, held_n, no_grad, total = 0.0, 0, 0, 0
@@ -2153,11 +2254,16 @@ def phase_train_compare(arch: str) -> dict:
            "param_gap_held": held_gap, "param_atol": TRAIN_PARAM_ATOL,
            "rounding": TRAIN_ROUNDING, "checked_share_of_graded": checked,
            "min_checked": TRAIN_MIN_CHECKED, "no_gradient_share": no_grad / total,
-           "kernel": name, "launches": kl, "launches_plain": rl}
+           "kernel": name, "launches": kl, "launches_plain": rl, "bwd_launches": kb,
+           "bwd_launches_plain": rb}
     emit(row)
     check(kl == TRAIN_CMP_STEPS * per_step and rl == 0,
           f"train {arch}: {kl} {name} launches through the kernels, {rl} through the plain "
           f"route; expected {TRAIN_CMP_STEPS * per_step} and 0")
+    want_bwd = TRAIN_CMP_STEPS * per_step // 2 if name == "flash_attention" else 0
+    check(kb == want_bwd and rb == 0,
+          f"train {arch}: {kb} backward kernel launches through the kernels, {rb} through the "
+          f"plain route; expected {want_bwd} and 0")
     check(all(gaps[k] <= TRAIN_LOSS_RTOL for k in ("loss", "ce", "aux"))
           and gaps["grad_norm"] <= TRAIN_NORM_RTOL, f"train {arch}: kernels vs plain {gaps}")
     check(grad_gap <= TRAIN_GRAD_RTOL, f"train {arch}: step-1 gradients {grad_gap} apart")
@@ -2189,6 +2295,7 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.attention import flash_attention as fa
     from repro_torch.launch import mesh
     from repro_torch.launch.train import opt_config
     from repro_torch.models.model import build_model
@@ -2215,7 +2322,7 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
         b = _train_batch(data, i, cfg)  # set-up: the host makes the batch
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        module.launches = 0
+        module.launches = fa.bwd_launches = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
         start.record()
@@ -2226,14 +2333,18 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
         row = {"phase": "train_step", "arch": arch, "step": i + 1,
                **{k: float(v) for k, v in m.items()}, "s": s,
                "device_ms": start.elapsed_time(end), "tokens_per_s": batch * seq / s,
-               "launches": module.launches, "kernel": name,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": module.launches, "bwd_launches": fa.bwd_launches,
+               "kernel": name, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "mfu": flops / s / rates[torch.bfloat16]}
         emit(row)
         rows.append(row)
         check(row["launches"] == per_step,
               f"train {arch} step {i + 1}: {row['launches']} {name} launches, expected "
               f"{per_step} (forward and recompute)")
+        want_bwd = per_step // 2 if name == "flash_attention" else 0
+        check(row["bwd_launches"] == want_bwd,
+              f"train {arch} step {i + 1}: {row['bwd_launches']} backward kernel launches, "
+              f"expected {want_bwd} (one per attention layer)")
         if do_ckpt and i + 1 == TRAIN_CKPT_AFTER:
             t = time.perf_counter()
             ckpt.save(str(path), {"params": params, "opt": state})
@@ -2263,7 +2374,8 @@ def phase_train_whole(arch: str, batch: int, seq: int, gpu: str) -> dict:
                "median_peak_gib": statistics.median(r["peak_gib"] for r in rows),
                "median_device_ms": statistics.median(r["device_ms"] for r in rows[1:]),
                "kernel": name,
-               "launches": sum(r["launches"] for r in rows)}
+               "launches": sum(r["launches"] for r in rows),
+               "bwd_launches": sum(r["bwd_launches"] for r in rows)}
     emit(summary)
     check(all(math.isfinite(x) for x in losses), f"train {arch}: a loss is not finite")
     check(losses[-1] <= losses[0] - TRAIN_MIN_DROP,
@@ -2296,13 +2408,20 @@ def _logits_ce_ms(api, params, batch: int, seq: int) -> float:
         allow_unused=True), iters=3, warmup=1)
 
 
+# The device kernels of flash attention's backward (flash_attention_bwd.cu).
+BWD_KERNEL_NAMES = ("delta_kernel", "dkdv_mma_kernel", "dq_mma_kernel", "dkdv_fma_kernel",
+                    "dq_fma_kernel")
+
+
 def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> dict:
     """One training step of a whole model in ``torch.profiler`` (after one
     outside it): the device time over the median host-clock step time of
     ``phase_train_whole`` (the busy share), and the device time of the kernel
-    (forward and recompute), of the plain backward (the ``plain_grad.*``
-    ranges), of the forward and of the optimizer (``train_step.*``), beside
-    the logits and CE timed alone at the step's shapes."""
+    (forward and recompute), of flash attention's backward kernel (its
+    three passes) and its share, of the plain backward (the ``plain_grad.*``
+    ranges: the SSD scan's; flash attention's, ``plain_grad.flash_plain``,
+    must read 0), of the forward and of the optimizer (``train_step.*``),
+    beside the logits and CE timed alone at the step's shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -2339,13 +2458,22 @@ def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> dict:
            "busy_share": device_ms / (host_s * 1e3), "device_kernels": len(kernels),
            "kernel_device_ms": sum(e.time_range.elapsed_us() for e in kernels
                                    if kernel_name in e.name) / 1e3,
+           "bwd_kernel_device_ms": sum(e.time_range.elapsed_us() for e in kernels
+                                       if any(n in e.name for n in BWD_KERNEL_NAMES)) / 1e3,
            "plain_backward_device_ms": range_ms("plain_grad."),
+           "plain_flash_backward_device_ms": range_ms("plain_grad.flash_plain"),
            "forward_device_ms": range_ms("train_step.forward"),
            "optimizer_device_ms": range_ms("train_step.optimizer"),
            "logits_ce_fwd_bwd_ms_alone": _logits_ce_ms(api, params, batch, seq)}
+    row["bwd_kernel_share"] = row["bwd_kernel_device_ms"] / device_ms if device_ms else None
     emit(row)
     check(device_ms > 0 and row["kernel_device_ms"] > 0,
           f"the profiler saw no device time in a {arch} training step")
+    check(row["plain_flash_backward_device_ms"] == 0
+          and (cfg.arch_type == "ssm") == (row["bwd_kernel_device_ms"] == 0),
+          f"{arch}: flash attention's backward went through the plain version "
+          f"({row['plain_flash_backward_device_ms']} ms) or not through its kernel "
+          f"({row['bwd_kernel_device_ms']} ms)")
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2908,15 +3036,15 @@ def _shard_train(dmesh, arch: str, batch: int, seq: int) -> dict:
     api = build_model(cfg)
     params = api.init(0, dtype=torch.bfloat16, device=DEVICE)
     inputs = concrete_inputs(cfg, InputShape("t", seq, batch, "train"), seed=0, device=DEVICE)
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     loss, _, grads = loss_and_grads(api, params, inputs)
-    want_launches = fa.launches
+    want_launches, want_bwd = fa.launches, fa.bwd_launches
     dparams = distribute_params(_clone_tree(params), api.param_decls, dmesh, rules)
     t0 = time.perf_counter()
     with _layout(dmesh, rules):
-        fa.launches = 0
+        fa.launches = fa.bwd_launches = 0
         dloss, _, dgrads = loss_and_grads(api, dparams, _placed(dmesh, rules, inputs))
-        got_launches = fa.launches
+        got_launches, got_bwd = fa.launches, fa.bwd_launches
         full_grads = [_full(g) for g in dgrads]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2949,11 +3077,13 @@ def _shard_train(dmesh, arch: str, batch: int, seq: int) -> dict:
                                              for i, ((_, b), g) in enumerate(zip(new_params,
                                                                                  param_gaps))
                                              if g), None),
-           "launches": got_launches,
-           "launches_unsharded": want_launches, "sharded_s": wall}
+           "launches": got_launches, "launches_unsharded": want_launches,
+           "bwd_launches": got_bwd, "bwd_launches_unsharded": want_bwd, "sharded_s": wall}
     emit(row)
     check(got_launches == want_launches and (got_launches > 0 or DEVICE == "cpu"),
           f"shard_step {arch} train: {got_launches} flash launches, unsharded {want_launches}")
+    check(got_bwd == want_bwd and (got_bwd > 0 or DEVICE == "cpu"),
+          f"shard_step {arch} train: {got_bwd} flash backward launches, unsharded {want_bwd}")
     check(row["loss_bit_equal"] or abs(row["loss"] - row["loss_sharded"]) <= 5e-2 * abs(row["loss"]),
           f"shard_step {arch} train: loss {row['loss_sharded']} vs {row['loss']}")
     for name, g, gap in zip(names, grads, grad_gaps, strict=True):
@@ -2983,7 +3113,8 @@ def phase_shard_step() -> dict:
         train = _shard_train(dmesh, *SHARD_TRAIN)
         gc.collect()
     torch.cuda.empty_cache()
-    launches = {"flash_attention": train["launches"], "decode_attention": 0, "ssd": 0}
+    launches = {"flash_attention": train["launches"], "decode_attention": 0, "ssd": 0,
+                "flash_attention_bwd": train["bwd_launches"]}
     for row in rows:
         for name, n in row["launches"].items():
             launches["ssd" if name == "ssd_scan" else name] += n
@@ -3102,7 +3233,7 @@ def main() -> None:
     phase_build()
     summary = phase_kernels(gpu)
     lap("kernels")
-    phase_gradients()
+    grads = phase_gradients()
     lap("gradients")
     phase_model("granite-8b")
     phase_model("mamba2-370m", torch.float32)
@@ -3198,6 +3329,25 @@ def main() -> None:
                 "src/repro/kernels/ssd/ssd_scan.py:82"),
     }
     kernels = []
+    # Flash attention's backward: the gradient of the kernel above (the TPU
+    # kernel has no backward; jax.grad differentiates its plain route), at
+    # qwen2-vl-2b's training shape, launched once per attention layer a step.
+    g = grads[("flash_attention", tuple(GRAD_FLASH_TRAIN[0]), "bfloat16")]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/attention/flash_attention.py:90",
+        "replaces_note": "the gradient of that kernel, which jax.grad takes of its plain route",
+        "launches": trained["qwen2-vl-2b"]["bwd_launches"],
+        "launches_by_training": {arch: t["bwd_launches"] for arch, t in trained.items()},
+        "launches_by_shard_step": sharded["flash_attention_bwd"],
+        "max_abs_err": g["grad_max_abs_err"], "grad_gap": g["grad_gap"], "grad_tol": g["grad_tol"],
+        "ms": g["bwd_ms"], "plain_ms": g["bwd_plain_ms"], "bound_ms": g["bwd_bound_ms"],
+        "bound_by": g["bwd_bound_by"], "library_ms": g["sdpa_bwd_ms"],
+        "fwd_bwd_ms": g["kernel_fwd_bwd_ms"], "old_route_fwd_bwd_ms": g["old_route_fwd_bwd_ms"],
+        "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"], "shape": g["case"], "dtype": g["dtype"],
+    })
+    check(kernels[0]["launches"] > 0, "flash_attention_bwd: no launch in the training run")
     for name, (source, replaces) in sources.items():
         row = summary[name]
         kernels.append({

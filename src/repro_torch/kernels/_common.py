@@ -10,7 +10,10 @@ the tests) pass it.
 
 ``PlainGrad`` puts a kernel call into autograd: the kernel computes the
 forward, and the backward is the plain version's own (recomputed from the
-saved inputs), since the reference has no backward kernel.
+saved inputs), since the reference has no backward kernel.  The SSD scan
+(``ssd/ssd_scan.py``) is the one kernel that still uses it; flash attention
+has a backward kernel and its own Function
+(``attention/flash_attention.py::FlashAttentionFn``).
 
 On a ``meta`` tensor a wrapper launches nothing: it propagates the kernel's
 output shapes and hands the call's ``Cost`` (the one count of its work, the
@@ -115,10 +118,12 @@ class PlainGrad(torch.autograd.Function):
     ``torch.enable_grad()`` on the saved inputs and returns its
     vector-Jacobian product for every input that needs one (``None`` for
     inputs given as ``None``), inside the profiler range
-    ``plain_grad.<plain's name>``.  No backward kernel exists: the reference's
-    Pallas kernels have no ``custom_vjp``, and ``jax.grad`` differentiates
-    their plain versions.  A test injects the plain version as ``kernel``
-    to hold this backward against native autograd on the CPU.
+    ``plain_grad.<plain's name>``.  The reference's Pallas kernels have no
+    ``custom_vjp``, and ``jax.grad`` differentiates their plain versions.
+    The SSD scan uses this Function (its backward kernel is still to come);
+    flash attention runs its backward kernel (``FlashAttentionFn``).  A test
+    injects the plain version as ``kernel`` to hold this backward against
+    native autograd on the CPU.
     """
 
     @staticmethod

@@ -29,6 +29,11 @@
 //     visited (the loop bounds come from the masks); ragged tile edges are
 //     masked in the kernel and out-of-range rows are loaded as zeros, so the
 //     wrapper makes no padded copies.
+//   * Where the caller asks for it (training), each row's log-sum-exp,
+//     m + ln l, goes to a float32 (B, H, S_q) tensor for the backward
+//     kernel; -inf for a row that sees no key.
+#include <math.h>
+
 #include "common.cuh"
 
 namespace repro {
@@ -48,6 +53,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S_q) log-sum-exp, natural log; null: not wanted
   int B, S_q, S_kv, H, KV, G;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -202,6 +208,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
 #pragma unroll
   for (int i = 0; i < kRM; ++i) {
     const int row = q0 + ty * kRM + i;
+    if (a.lse != nullptr && tx == 0 && row < a.S_q)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.S_q + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     if (row < a.S_q) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -237,19 +246,21 @@ cudaError_t launch_d(const FlashArgs& a, int D, cudaStream_t stream) {
 }  // namespace repro
 
 // float32 only.  q (B,S_q,H,D), k/v (B,S_kv,KV,D), o
-// (B,S_q,H,D); strides in elements, last dimension contiguous.  Returns the
-// CUDA error of the launch (0 on success).
+// (B,S_q,H,D); strides in elements, last dimension contiguous.  `lse`, where
+// not null, receives each row's float32 log-sum-exp, (B, H, S_q)
+// contiguous.  Returns the CUDA error of the launch (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int S_q, int S_kv,
     int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window, int q_offset,
-    float scale, void* stream) {
+    float scale, void* lse, void* stream) {
   repro::FlashArgs a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = static_cast<float*>(lse);
   a.B = B;
   a.S_q = S_q;
   a.S_kv = S_kv;

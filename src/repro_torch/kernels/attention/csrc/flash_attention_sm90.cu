@@ -37,7 +37,10 @@
 //   * Tiles that no row of a consumer can see are skipped; tiles on the
 //     causal diagonal, the window edge or past S_kv are masked in registers
 //     (a zero-filled key scores 0, not -inf).  O is divided by l in the
-//     epilogue and stored through the output's strides.
+//     epilogue and stored through the output's strides.  Where the
+//     caller asks for it (training: the backward kernel reads it), the
+//     row's log-sum-exp, m·ln 2 + ln l, goes to a float32 (B, H, S_q)
+//     tensor; -inf for a row that sees no key.
 //   * D = 256 (recurrentgemma-9b's local attention) keeps the same tiles:
 //     four 64-column TMA boxes per row, 161 KB of shared memory, so one
 //     block per SM; P·V is two N = 128 products over the two halves of V,
@@ -57,10 +60,12 @@ constexpr int kRows = 64;     // query rows per consumer warpgroup (one wgmma M)
 constexpr int kBK = 64;       // keys per K/V tile
 constexpr int kStages = 2;    // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Sm90Args {
   void* o;
-  int S_q, S_kv, G;
+  float* lse;  // (B, H, S_q) log-sum-exp, natural log; null: not wanted
+  int S_q, S_kv, H, G;
   long long o_sb, o_ss, o_sh;
   int causal, window, q_offset;
   float scale_log2;  // softmax scale times log2(e): p = 2^(s·scale_log2 − m)
@@ -352,7 +357,7 @@ __global__ void __launch_bounds__(NC * 128 + 32, NC == 1 && D < 256 ? 2 : 1)
     if (lane == 0) mbar_arrive(&bar_e[st]);
   }
 
-  // Epilogue: O / l, stored through the output's strides.
+  // Epilogue: O / l, stored through the output's strides; the log-sum-exp.
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -361,6 +366,9 @@ __global__ void __launch_bounds__(NC * 128 + 32, NC == 1 && D < 256 ? 2 : 1)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = l > 0.f ? 1.f / l : 0.f;
     const int row = r_lo + 8 * r;
+    if (a.lse != nullptr && lane % 4 == 0 && row < a.S_q)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.S_q + row] =
+          l > 0.f ? m_run[r] * kLn2 + logf(l) : -INFINITY;
     if (row < a.S_q) {
 #pragma unroll
       for (int j = 2 * r; j < D / 2; j += 4) {
@@ -476,13 +484,15 @@ extern "C" int repro_flash_attention_sm90(
     int KV, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window, int q_offset,
-    float scale, void* stream) {
+    float scale, void* lse, void* stream) {
   const repro::Operands x{q,    k,    v,    B,    S_q,  S_kv, H,    KV,
                           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   repro::Sm90Args a{};
   a.o = o;
+  a.lse = static_cast<float*>(lse);
   a.S_q = S_q;
   a.S_kv = S_kv;
+  a.H = H;
   a.G = H / KV;
   a.o_sb = o_sb;
   a.o_ss = o_ss;

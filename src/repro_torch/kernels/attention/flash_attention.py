@@ -1,32 +1,41 @@
-"""Flash attention for prefill: wrapper of the CUDA kernels in
+"""Flash attention for prefill and training: wrapper of the CUDA kernels in
 ``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention.cu`` (they
 replace the Pallas kernel
-``repro/kernels/attention/flash_attention.py::flash_attention``).
+``repro/kernels/attention/flash_attention.py::flash_attention``) and of its
+backward, ``csrc/flash_attention_bwd.cu`` (the Pallas kernel has none:
+``jax.grad`` differentiates the plain route).
 
 The route is chosen by dtype before the launch (``route``): bfloat16 runs
-on the tensor cores (``wgmma`` fed by TMA, ``flash_attention_sm90.cu``);
-float32 runs on the FMA pipes (``flash_attention.cu``), since a TF32
+on the tensor cores (``wgmma`` fed by TMA, ``flash_attention_sm90.cu``; the
+backward on ``mma.sync``); float32 runs on the FMA pipes
+(``flash_attention.cu`` and the backward's float32 kernels), since a TF32
 product would miss float32's tolerance.  Each route launches its kernel or
 raises; neither falls back to the other or to the plain version.
 
-On a CPU tensor the wrapper computes the plain version, ``ref.flash_plain``.
-On the card the kernel's output carries the plain version's gradient
-(``_common.PlainGrad``), so training runs the kernel in every forward.
-On ``meta`` tensors it checks the operands as for a launch, returns the
-output's shape and counts ``cost`` (``_common.count_meta_call``); under
-autograd the backward is again the plain version's, on meta.
-``launches`` counts the kernel launches this process made, those of a
-recomputed forward (``torch.utils.checkpoint``) too.
+On a CPU tensor the wrapper computes the plain version, ``ref.flash_plain``,
+with native autograd.  On the card a call that autograd records goes
+through ``FlashAttentionFn``: the forward kernel also writes each row's
+log-sum-exp, and the backward is ``flash_attention_bwd``, the backward
+kernel (dq, dk, dv from q, k, v, the output, the log-sum-exp and the
+output's cotangent; no S x S tensor).  A call that autograd does not record
+(serving) launches the forward alone, without the log-sum-exp.  On ``meta``
+tensors it checks the operands as for a launch, returns the outputs' shapes
+and counts ``cost`` (``_common.count_meta_call``), and under autograd
+``cost_backward`` as one ``flash_attention_bwd`` call.  ``launches`` counts
+the forward kernel's launches this process made, those of a recomputed
+forward (``torch.utils.checkpoint``) too; ``bwd_launches`` the backward's.
 
 On DTensor operands (``_sharded``) batch and head shards are local.  Under
 GQA each rank's query heads get exactly the kv heads they read: kv heads
 sharded as the query heads are, or replicated K/V sliced to the local
 heads' group.  A sequence-sharded q gathers K/V once along the sequence and
-runs with its shard's ``q_offset``, so the causal band stays right.
+runs with its shard's ``q_offset``, so the causal band stays right.  The
+local calls reach ``FlashAttentionFn`` as any other call does.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -36,7 +45,7 @@ from repro_torch.kernels import _build
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.placement_types import Replicate, Shard
 
-from repro_torch.kernels._common import (Cost, PlainGrad, check_placements, count_meta_call,
+from repro_torch.kernels._common import (DTYPE_CODES, Cost, check_placements, count_meta_call,
                                          even_shards, partial_on, raise_on_error,
                                          replicate_dims, resolve_partial, shard_index,
                                          sharded_call, stream_handle, unit_dims_replicated)
@@ -44,9 +53,17 @@ from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention._common import check_operands, kv_group_slice
 
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
-_ENTRIES = {"wgmma": "repro_flash_attention_sm90", "fma": "repro_flash_attention"}
+_ENTRIES = {"wgmma": "repro_flash_attention_sm90", "fma": "repro_flash_attention",
+            "bwd": "repro_flash_attention_bwd"}
+_ARGTYPES = {
+    "fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]),
+    "bwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 24
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+}
 
 launches = 0
+bwd_launches = 0
 _fns: dict[str, object] = {}
 
 
@@ -61,10 +78,7 @@ def _kernel(name: str):
     if name not in _fns:
         fn = getattr(_build.library(), _ENTRIES[name])
         fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-        )
+        fn.argtypes = _ARGTYPES["bwd" if name == "bwd" else "fwd"]
         _fns[name] = fn
     return _fns[name]
 
@@ -79,28 +93,73 @@ def pairs(s_q: int, s_kv: int, *, causal: bool, window: int, q_offset: int) -> i
 
 
 def cost(b: int, s_q: int, s_kv: int, h: int, kv: int, d: int, *, causal: bool, window: int,
-         q_offset: int, dtype: torch.dtype) -> Cost:
+         q_offset: int, dtype: torch.dtype, lse: bool = False) -> Cost:
     """One call's least work: the two products over the pairs inside the
-    band, 4·B·H·D per pair, and q, k, v read and the output written once."""
+    band, 4·B·H·D per pair, and q, k, v read and the output written once
+    (with ``lse``, also the float32 log-sum-exp, B·H·S_q values)."""
     n = pairs(s_q, s_kv, causal=causal, window=window, q_offset=q_offset)
     return Cost({dtype: 4.0 * b * h * d * n},
-                (2 * b * s_q * h + 2 * b * s_kv * kv) * d * dtype.itemsize)
+                (2 * b * s_q * h + 2 * b * s_kv * kv) * d * dtype.itemsize
+                + (4 * b * h * s_q if lse else 0))
+
+
+def cost_backward(b: int, s_q: int, s_kv: int, h: int, kv: int, d: int, *, causal: bool,
+                  window: int, q_offset: int, dtype: torch.dtype) -> Cost:
+    """One backward call's least work: twice the forward's products (one
+    per operand of each, ``Cost.with_backward``), and q, k, v, the output,
+    its cotangent and the float32 log-sum-exp read, dq, dk and dv written
+    once."""
+    n = pairs(s_q, s_kv, causal=causal, window=window, q_offset=q_offset)
+    return Cost({dtype: 8.0 * b * h * d * n},
+                (4 * b * s_q * h + 4 * b * s_kv * kv) * d * dtype.itemsize + 4 * b * h * s_q)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its backward kernel.
+
+    ``forward(ctx, fwd, bwd, kwargs, q, k, v)`` returns the output of
+    ``fwd(q, k, v, **kwargs)``, which returns (output, float32 log-sum-exp
+    (B, H, S_q)), and saves q, k, v, the output and the log-sum-exp;
+    ``backward`` returns ``bwd(q, k, v, out, lse, dout, **kwargs)``: dq, dk
+    and dv.  On the card ``fwd`` and ``bwd`` are the kernels' wrappers
+    (``meta``: their meta routes); a test injects ``ref.flash_plain_lse``
+    and ``ref.flash_bwd_plain`` to hold the Function against native
+    autograd on the CPU."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, kwargs, q, k, v):
+        out, lse = fwd(q, k, v, **kwargs)
+        ctx.bwd, ctx.kwargs = bwd, kwargs
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, out, lse, dout.contiguous(), **ctx.kwargs)
+        return None, None, None, dq, dk, dv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """q (B,S_q,H,D), k/v (B,S_kv,KV,D) -> (B,S_q,H,D) in q's dtype.
 
-    On the card the kernel computes the output and autograd differentiates
-    it with the plain version's backward (``_common.PlainGrad``: recomputed
-    from q, k and v; there is no backward kernel)."""
+    On the card a call that autograd records goes through
+    ``FlashAttentionFn``: the forward kernel with the log-sum-exp, and the
+    backward kernel.  Otherwise the forward kernel runs alone."""
     kwargs = {"causal": causal, "window": window, "q_offset": q_offset}
     if isinstance(q, DTensor):
         return _sharded(q, k, v, **kwargs)
     if q.device.type == "cpu":
         return ref.flash_plain(q, k, v, **kwargs)
-    kernel = _meta if q.device.type == "meta" else _launch
-    return PlainGrad.apply(kernel, ref.flash_plain, kwargs, q, k, v)
+    meta = q.device.type == "meta"
+    if not ref.records(q, k, v):
+        return (_meta if meta else _launch)(q, k, v, **kwargs)
+    if meta:
+        return FlashAttentionFn.apply(functools.partial(_meta, lse=True), _meta_bwd, kwargs,
+                                      q, k, v)
+    return FlashAttentionFn.apply(functools.partial(_launch, lse=True), flash_attention_bwd,
+                                  kwargs, q, k, v)
 
 
 def _shards(t, dim: int) -> int:
@@ -207,29 +266,93 @@ def _check(q, k, v, window: int, q_offset: int, device_type: str) -> None:
                          f"q_offset={q_offset}")
 
 
-def _meta(q, k, v, *, causal: bool, window: int, q_offset: int) -> torch.Tensor:
-    """The meta route: the output's shape, and the call's ``cost`` counted."""
+def _lse_like(q) -> torch.Tensor:
+    b, s_q, h, _ = q.shape
+    return torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+
+
+def _meta(q, k, v, *, causal: bool, window: int, q_offset: int, lse: bool = False):
+    """The meta route: the output's shape (and the log-sum-exp's with
+    ``lse``), and the call's ``cost`` counted."""
     _check(q, k, v, window, q_offset, "meta")
     b, s_q, h, d = q.shape
     count_meta_call("flash_attention", cost(b, s_q, k.shape[1], h, k.shape[2], d, causal=causal,
-                                            window=window, q_offset=q_offset, dtype=q.dtype))
-    return torch.empty_like(q, memory_format=torch.contiguous_format)
+                                            window=window, q_offset=q_offset, dtype=q.dtype,
+                                            lse=lse))
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    return (out, _lse_like(q)) if lse else out
 
 
-def _launch(q, k, v, *, causal: bool, window: int, q_offset: int) -> torch.Tensor:
-    """One launch of the kernel for ``route(q.dtype)``."""
+def _launch(q, k, v, *, causal: bool, window: int, q_offset: int, lse: bool = False):
+    """One launch of the kernel for ``route(q.dtype)``; with ``lse`` it also
+    returns each row's float32 log-sum-exp, (B, H, S_q)."""
     _check(q, k, v, window, q_offset, "cuda")
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse_t = _lse_like(q) if lse else None
     with torch.cuda.device(q.device):
         err = _kernel(route(q.dtype))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s_q, s_kv, h, kv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(causal), int(window), int(q_offset), ref.softmax_scale(d), stream_handle(q),
+            int(causal), int(window), int(q_offset), ref.softmax_scale(d),
+            None if lse_t is None else lse_t.data_ptr(), stream_handle(q),
         )
     raise_on_error("flash_attention", err)
     global launches
     launches += 1
-    return out
+    return (out, lse_t) if lse else out
+
+
+def _check_bwd(q, k, v, out, lse, dout, window: int, q_offset: int, device_type: str) -> None:
+    _check(q, k, v, window, q_offset, device_type)
+    check_operands("flash_attention_bwd", {"q": q, "out": out, "dout": dout}, device_type)
+    b, s_q, h, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)} differ")
+    if (lse.shape != (b, h, s_q) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}; want a contiguous float32 ({b}, {h}, {s_q}) on "
+                         f"{q.device}")
+
+
+def _meta_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int, q_offset: int):
+    """The backward's meta route: dq, dk, dv (and the Δ scratch) allocated,
+    and ``cost_backward`` counted as one ``flash_attention_bwd`` call."""
+    _check_bwd(q, k, v, out, lse, dout, window, q_offset, "meta")
+    b, s_q, h, d = q.shape
+    count_meta_call("flash_attention_bwd", cost_backward(
+        b, s_q, k.shape[1], h, k.shape[2], d, causal=causal, window=window, q_offset=q_offset,
+        dtype=q.dtype))
+    grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
+    torch.empty_like(lse)  # the Δ scratch, live beside the gradients during the launch
+    return grads
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv (in the inputs' dtype) of ``flash_attention(q, k, v)``
+    from its output ``out``, its float32 log-sum-exp ``lse`` (B, H, S_q)
+    and the output's cotangent ``dout``: one call of the backward kernel
+    (a Δ pass, the dK/dV pass, the dQ pass) for ``route(q.dtype)``.  Raises
+    on what the kernel does not take."""
+    _check_bwd(q, k, v, out, lse, dout, window, q_offset, "cuda")
+    b, s_q, h, d = q.shape
+    s_kv, kv = k.shape[1], k.shape[2]
+    grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _kernel("bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
+            DTYPE_CODES[q.dtype], b, s_q, s_kv, h, kv, d,
+            *(st for t in (q, k, v, out, dout, *grads) for st in t.stride()[:3]),
+            int(causal), int(window), int(q_offset), ref.softmax_scale(d), stream_handle(q),
+        )
+    raise_on_error("flash_attention_bwd", err)
+    global bwd_launches
+    bwd_launches += 1
+    return grads

@@ -20,6 +20,9 @@ values, so that its backward finds what it saved.
 
 ``flash_plain`` is the plain route of ``ops.flash_attention``: the banded
 form where the reference's dispatch picks it, ``mha`` elsewhere.
+``flash_lse``/``flash_plain_lse`` and ``flash_bwd_plain`` are the plain
+versions of what the flash kernels add for training: the forward's
+log-sum-exp and the backward from it (tests and ``chip_smoke.py`` only).
 """
 from __future__ import annotations
 
@@ -140,6 +143,52 @@ def flash_plain(q, k, v, *, causal: bool = True, window: int = 0,
     if uses_banded(q.shape[1], k.shape[1], causal=causal, window=window, q_offset=q_offset):
         return mha_banded(q, k, v, window=window)
     return mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def flash_lse(q, k, *, causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """The float32 log-sum-exp of each query row's visible scaled logits,
+    (B, H, S_q), natural log; -inf for a row that sees no key."""
+    b, s_q, h, d = q.shape
+    s_kv, kv = k.shape[1], k.shape[2]
+    logits = _logits_f32("bqngd,bknd->bngqk", q.reshape(b, s_q, kv, h // kv, d), k, d)
+    mask = attention_mask(s_q, s_kv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    return torch.logsumexp(logits.masked_fill_(~mask, -torch.inf), dim=-1).reshape(b, h, s_q)
+
+
+def flash_plain_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_plain``'s output and ``flash_lse``: what the kernel's forward
+    returns for its backward."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    return flash_plain(q, k, v, **kw), flash_lse(q, k, **kw)
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv of attention from the forward's output and log-sum-exp
+    (``flash_lse``), computed tile-free in float32 and returned in the
+    inputs' dtypes: P = exp(S·scale − lse), dV = Pᵀ·dO, dP = dO·Vᵀ,
+    Δ = rowsum(dO ∘ O), dS = P ∘ (dP − Δ), dQ = dS·K·scale, dK = dSᵀ·Q·scale.
+    The backward kernel computes the same, tile by tile."""
+    b, s_q, h, d = q.shape
+    s_kv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = softmax_scale(d)
+    qf, kf, vf = q.float().reshape(b, s_q, kv, g, d), k.float(), v.float()
+    dof = dout.float().reshape(b, s_q, kv, g, d)
+    mask = attention_mask(s_q, s_kv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    s = torch.einsum("bqngd,bknd->bngqk", qf, kf).mul_(scale)
+    # A row with no visible key (lse = -inf) gets P = 0, as masked entries do.
+    lse_f = lse.float().reshape(b, kv, g, s_q, 1)
+    p = s.sub_(lse_f.masked_fill(torch.isinf(lse_f), 0.0)).exp_().masked_fill_(~mask, 0.0)
+    dv = torch.einsum("bngqk,bqngd->bknd", p, dof)
+    delta = (dout.float() * out.float()).sum(-1).reshape(b, s_q, kv, g).permute(0, 2, 3, 1)
+    ds = torch.einsum("bqngd,bknd->bngqk", dof, vf).sub_(delta[..., None]).mul_(p)
+    dq = torch.einsum("bngqk,bknd->bqngd", ds, kf).mul_(scale).reshape(b, s_q, h, d)
+    dk = torch.einsum("bngqk,bqngd->bknd", ds, qf).mul_(scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_gqa(q, k_cache, v_cache, cache_len, *, window: int = 0, slot_offset: int = 0,

@@ -852,8 +852,9 @@ def test_encdec_model_through_the_kernels(card):
 
 
 # ---------------------------------------------------------------------------
-# Training: the flash and SSD kernels inside autograd (their outputs carry
-# the plain versions' backward), the decode kernel refusing a gradient, and
+# Training: flash attention's backward kernel, the SSD kernel inside
+# autograd (its output carries the plain version's backward), the decode
+# kernel refusing a gradient, and
 # a reduced train step on the card against the same step on the CPU.
 # ---------------------------------------------------------------------------
 
@@ -866,34 +867,114 @@ def _grad_gap(kernel_out, plain_out, inputs, plain_inputs, cots):
             for g, w in zip(got, want)]
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("case", [
+# (b, s_q, s_kv, h, kv, d, causal, window, q_offset): every head dim, GQA
+# groups up to 16, a window, S_q != S_kv with and without a causal mask.
+FLASH_GRAD_CASES = [
     (1, 77, 77, 4, 2, 32, True, 0, 0),
     (2, 130, 200, 6, 2, 64, True, 0, 70),
     (1, 300, 300, 8, 4, 128, True, 40, 0),
     (3, 33, 65, 4, 4, 64, False, 0, 0),
     (2, 128, 128, 16, 1, 256, True, 0, 0),
-])
-def test_flash_gradients_through_the_kernel(case, dtype, card):
-    """The cotangent is the same in both runs, so the gradients are the plain
-    version's own: only the order of its sums on the card may differ."""
+    (1, 200, 200, 16, 1, 256, True, 64, 0),
+    (1, 96, 300, 8, 8, 256, False, 0, 0),
+    (1, 100, 100, 16, 1, 64, True, 0, 0),
+    (1, 64, 80, 4, 2, 64, True, 16, 10),    # a window at an offset
+]
+BF16_STEP = 2.0 ** -7   # one bf16 step, relative to a gradient's max|g|
+GRAD_F32_RTOL = 1e-5    # float32 kernel vs plain: the same sums in another order
+
+
+def _rel_gap(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _flash_grad_inputs(case, dtype, gen):
     b, s_q, s_kv, h, kv, d, causal, window, off = case
-    kw = dict(causal=causal, window=window, q_offset=off)
-    qkv = [_randn(card, shape, dtype) for shape in ((b, s_q, h, d), (b, s_kv, kv, d),
+    qkv = [_randn(gen, shape, dtype) for shape in ((b, s_q, h, d), (b, s_kv, kv, d),
                                                     (b, s_kv, kv, d))]
-    cot = _randn(card, (b, s_q, h, d), dtype)
+    return qkv, _randn(gen, (b, s_q, h, d), dtype), dict(causal=causal, window=window,
+                                                         q_offset=off)
+
+
+def _flash_grad_reference(qkv, dout, kw, dtype):
+    """(the gradients to hold the kernel's against, each input's tolerance
+    relative to its max|g|).  float32: ``ref.flash_bwd_plain`` on the same
+    inputs, within GRAD_F32_RTOL.  bf16: the float32 plain gradient of the
+    same inputs upcast, within the larger of twice the bf16 plain route's
+    own gap to it and one bf16 step."""
+    up = [x.float() for x in qkv]
+    out32, lse32 = ref.flash_plain_lse(*up, **kw)
+    want = ref.flash_bwd_plain(*up, out32, lse32, dout.float(), **kw)
+    if dtype == torch.float32:
+        return want, [GRAD_F32_RTOL] * 3
     leaves = [x.clone().requires_grad_() for x in qkv]
-    plain = [x.clone().requires_grad_() for x in qkv]
-    before = fa.launches
-    out = ops.flash_attention(*leaves, **kw)
-    assert fa.launches == before + 1 and out.grad_fn is not None
-    want = ref.flash_plain(*plain, **kw)
-    # the backward never reads the kernel's output: it is held on its own
-    torch.testing.assert_close(out.detach().float(), want.detach().float(),
+    plain = torch.autograd.grad(ref.flash_plain(*leaves, **kw), leaves, dout)
+    return want, [max(2 * _rel_gap(p, w), BF16_STEP) for p, w in zip(plain, want)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES)
+def test_flash_backward_kernel_matches_plain(case, dtype, card):
+    """The forward kernel's log-sum-exp within 1e-4 of the float32 plain one
+    (the kernel's scores are float32 sums of exact bf16 products), and the
+    backward kernel's dq, dk, dv against ``_flash_grad_reference``; a second
+    call gives the same bits (no atomics)."""
+    qkv, dout, kw = _flash_grad_inputs(case, dtype, card)
+    out, lse = fa._launch(*qkv, lse=True, **kw)
+    torch.testing.assert_close(lse, ref.flash_lse(*(x.float() for x in qkv[:2]), **kw),
+                               atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.float(), ref.flash_plain(*qkv, **kw).float(),
                                atol=ATOL[dtype], rtol=0)
-    gaps = _grad_gap(out, want, leaves, plain, cot)
-    assert fa.launches == before + 1
-    assert max(gaps) <= 1e-5, gaps
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(*qkv, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(*qkv, out, lse, dout, **kw)
+    assert fa.bwd_launches == before + 2
+    assert all(g.dtype == dtype and g.shape == x.shape for g, x in zip(got, qkv))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.float32:  # against the plain backward on the kernel's own out and lse
+        want = ref.flash_bwd_plain(*qkv, out, lse, dout, **kw)
+        gaps = [_rel_gap(g, w) for g, w in zip(got, want)]
+        assert max(gaps) <= GRAD_F32_RTOL, gaps
+    want, tols = _flash_grad_reference(qkv, dout, kw, dtype)
+    gaps = [_rel_gap(g, w) for g, w in zip(got, want)]
+    assert all(g <= t for g, t in zip(gaps, tols)), (gaps, tols)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES[:5])
+def test_flash_gradients_through_the_kernel(case, dtype, card):
+    """Autograd through ``ops.flash_attention``: one forward launch with the
+    log-sum-exp and one backward launch, no plain backward; the gradients
+    held as ``_flash_grad_reference`` says."""
+    qkv, cot, kw = _flash_grad_inputs(case, dtype, card)
+    leaves = [x.clone().requires_grad_() for x in qkv]
+    before = (fa.launches, fa.bwd_launches)
+    out = ops.flash_attention(*leaves, **kw)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out.detach().float(), ref.flash_plain(*qkv, **kw).float(),
+                               atol=ATOL[dtype], rtol=0)
+    got = torch.autograd.grad(out, leaves, cot)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want, tols = _flash_grad_reference(qkv, cot, kw, dtype)
+    gaps = [_rel_gap(g, w) for g, w in zip(got, want)]
+    assert all(g <= t for g, t in zip(gaps, tols)), (gaps, tols)
+
+
+def test_flash_backward_refuses_what_the_kernel_does_not_take(card):
+    q = _randn(card, (1, 64, 4, 64), torch.bfloat16)
+    k = _randn(card, (1, 64, 2, 64), torch.bfloat16)
+    out, lse = fa._launch(q, k, k, lse=True, causal=True, window=0, q_offset=0)
+    kw = dict(causal=True, window=0, q_offset=0)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, k, out, lse[:, :2], out, **kw)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_attention_bwd(q, k, k, out, lse, out.float(), **kw)
+    with pytest.raises(ValueError, match="differ"):
+        fa.flash_attention_bwd(q, k, k, out, lse, out[:, :32], **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(q, k, k, out, lse, out.cpu(), **kw)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

@@ -248,9 +248,12 @@ def test_meta_route_checks_operands_as_a_launch():
 
 
 def test_meta_route_backward_is_the_plain_versions():
-    """Under autograd the meta route's backward is the plain version's, on
-    meta: every input gets a gradient of its shape, and the counter sees the
-    plain backward's products beside the forward's ``cost``."""
+    """Under autograd the meta route's backward is the backward kernel's
+    meta route (it was the plain version's until the kernel existed): every
+    input gets a gradient of its shape, and the counter sees exactly one
+    ``flash_attention_bwd`` call of ``cost_backward`` beside the forward's
+    ``cost`` (with the log-sum-exp it writes for the backward), and no
+    product of a plain backward."""
     q = torch.empty((2, 64, 4, 32), dtype=torch.bfloat16, device="meta", requires_grad=True)
     k = torch.empty((2, 64, 2, 32), dtype=torch.bfloat16, device="meta", requires_grad=True)
     v = torch.empty_like(k, requires_grad=True)
@@ -259,10 +262,12 @@ def test_meta_route_backward_is_the_plain_versions():
         out = fa.flash_attention(q, k, v)
         grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
-    assert counter.kernels == {"flash_attention": 1}
-    fwd = fa.cost(2, 64, 64, 4, 2, 32, causal=True, window=0, q_offset=0,
-                  dtype=torch.bfloat16).flops[torch.bfloat16]
-    assert counter.flops[torch.bfloat16] > fwd  # the plain backward's bmm's on top
+    assert counter.kernels == {"flash_attention": 1, "flash_attention_bwd": 1}
+    kw = dict(causal=True, window=0, q_offset=0, dtype=torch.bfloat16)
+    fwd = fa.cost(2, 64, 64, 4, 2, 32, lse=True, **kw)
+    bwd = fa.cost_backward(2, 64, 64, 4, 2, 32, **kw)
+    assert counter.flops == {torch.bfloat16: fwd.flops[torch.bfloat16] + bwd.flops[torch.bfloat16]}
+    assert counter.bytes >= fwd.bytes + bwd.bytes
 
 
 # -- the counter ---------------------------------------------------------------
