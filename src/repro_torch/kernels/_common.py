@@ -10,10 +10,11 @@ the tests) pass it.
 
 ``PlainGrad`` puts a kernel call into autograd: the kernel computes the
 forward, and the backward is the plain version's own (recomputed from the
-saved inputs), since the reference has no backward kernel.  The SSD scan
-(``ssd/ssd_scan.py``) is the one kernel that still uses it; flash attention
-has a backward kernel and its own Function
-(``attention/flash_attention.py::FlashAttentionFn``).
+saved inputs).  No kernel's main path uses it: flash attention and the SSD
+scan have backward kernels and their own Functions
+(``attention/flash_attention.py::FlashAttentionFn``,
+``ssd/ssd_scan.py::SsdScanFn``).  ``chip_smoke.py`` times the old route
+through it, and the tests hold it against native autograd.
 
 On a ``meta`` tensor a wrapper launches nothing: it propagates the kernel's
 output shapes and hands the call's ``Cost`` (the one count of its work, the
@@ -120,8 +121,9 @@ class PlainGrad(torch.autograd.Function):
     inputs given as ``None``), inside the profiler range
     ``plain_grad.<plain's name>``.  The reference's Pallas kernels have no
     ``custom_vjp``, and ``jax.grad`` differentiates their plain versions.
-    The SSD scan uses this Function (its backward kernel is still to come);
-    flash attention runs its backward kernel (``FlashAttentionFn``).  A test
+    No kernel's main path uses this Function: flash attention and the SSD
+    scan run their backward kernels (``FlashAttentionFn``, ``SsdScanFn``);
+    it is the old route that ``chip_smoke.py`` times beside them.  A test
     injects the plain version as ``kernel`` to hold this backward against
     native autograd on the CPU.
     """

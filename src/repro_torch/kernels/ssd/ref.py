@@ -103,6 +103,101 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, h0=None, chunk: int = 64):
     return y.to(x.dtype), hstate
 
 
+def ssd_bwd_plain(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk: int = 64):
+    """The vector-Jacobian product of ``ssd_chunked`` written out in float32:
+    (dx, ddt, dA, dBm, dCm, dD, dh0), each in its input's dtype (dh0 None
+    without h0).  ``dy`` (the cotangent of y) and ``dh_final`` (of the final
+    state) may each be None (zero).
+
+    The chunked backward the kernel (``csrc/ssd_scan_bwd.cu``) computes, pass
+    for pass.  With a = A·dt, cum the within-chunk cumsum of a, tot its last
+    value, L[t, s] = exp(cum_t − cum_s) for s <= t:
+      1. the state entering each chunk, H[c], as the forward computes it;
+      2. the state's cotangent leaving each chunk, G[c] (G[last] = dh_final),
+         walking the chunks backwards: G[c−1] = exp(tot_c)·G[c] + Σ_t
+         exp(cum_t)·dy_t C_tᵀ; dh0 = G[−1];
+      3. per chunk, with K = L ∘ dt_s ∘ (dy_t·x_s) and U_s = Σ_t (C_t·B_s)
+         L[t, s] dy_t + exp(tot − cum_s) G B_s (= the state cotangent at s
+         times B_s): dx = dt·U + D·dy, dB = Kᵀ C + dt·exp(tot − cum)·x G
+         and dC = K B + exp(cum)·dy H (summed over heads), and the gradient
+         of cum, dcum_t = Σ_s (C_t·B_s) K[t, s] + exp(cum_t) dy_t·(H C_t)
+         − dt_t x_t·U_t (+ ⟨G, state leaving the chunk⟩ at the chunk's
+         end), reverse-summed within the chunk into da; ddt = x·U + A·da,
+         dA = Σ dt·da, dD = Σ dy·x.
+    """
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    f32 = torch.float32
+    dyf = torch.zeros((b, s, h, p), dtype=f32, device=x.device) if dy is None else dy.float()
+    if s % chunk:
+        pad = chunk - s % chunk
+        pad_s = lambda t, dims: F.pad(t, (0, 0) * dims + (0, pad))  # noqa: E731
+        grads = ssd_bwd_plain(pad_s(x, 2), pad_s(dt, 1), A, pad_s(Bm, 1), pad_s(Cm, 1), D, h0,
+                              pad_s(dyf, 2), dh_final, chunk=chunk)
+        dx, ddt, dA, dB, dC, dD, dh0 = grads
+        return dx[:, :s], ddt[:, :s], dA, dB[:, :s], dC[:, :s], dD, dh0
+    c = s // chunk
+    xf = x.float().reshape(b, c, chunk, h, p)
+    dtf = dt.float().reshape(b, c, chunk, h)
+    Bf = Bm.float().reshape(b, c, chunk, n)
+    Cf = Cm.float().reshape(b, c, chunk, n)
+    dyf = dyf.reshape(b, c, chunk, h, p)
+    Af = A.float()
+
+    a_cum = torch.cumsum((Af * dtf).movedim(-1, 2), dim=-1)          # (B,C,H,Q)
+    a_tot = a_cum[..., -1]                                            # (B,C,H)
+    L = torch.exp(_segsum((Af * dtf).movedim(-1, 2)))                 # (B,C,H,Q,Q) [t, s]
+    decay_in = torch.exp(a_cum).movedim(2, -1)                        # (B,C,Q,H)
+    decay_tail = torch.exp(a_tot[..., None] - a_cum).movedim(2, -1)   # (B,C,Q,H)
+
+    # Pass 1: the state entering each chunk.
+    states = torch.einsum("bcqh,bcqh,bcqhp,bcqn->bchpn", decay_tail, dtf, xf, Bf)
+    hstate = torch.zeros((b, h, p, n), dtype=f32, device=x.device) if h0 is None else h0.float()
+    h_prevs = []
+    for ci in range(c):
+        h_prevs.append(hstate)
+        hstate = torch.exp(a_tot[:, ci])[..., None, None] * hstate + states[:, ci]
+    H = torch.stack(h_prevs, dim=1)                                   # (B,C,H,P,N)
+
+    # Pass 2: the state's cotangent leaving each chunk, backwards.
+    local = torch.einsum("bcqh,bcqhp,bcqn->bchpn", decay_in, dyf, Cf)
+    g = (torch.zeros((b, h, p, n), dtype=f32, device=x.device) if dh_final is None
+         else dh_final.float())
+    g_next = [None] * c
+    for ci in reversed(range(c)):
+        g_next[ci] = g
+        g = torch.exp(a_tot[:, ci])[..., None, None] * g + local[:, ci]
+    G = torch.stack(g_next, dim=1)                                    # (B,C,H,P,N)
+    dh0 = None if h0 is None else g.to(h0.dtype)
+
+    # Pass 3: each chunk's gradients.
+    CB = torch.einsum("bctn,bcsn->bcts", Cf, Bf)                      # (B,C,Q,Q)
+    M = torch.einsum("bcthp,bcshp->bchts", dyf, xf)                   # dy_t · x_s
+    K = L * dtf.movedim(-1, 2)[..., None, :] * M                      # (B,C,H,Q,Q)
+    T = CB[:, :, None] * K
+    U = (torch.einsum("bchts,bcthp->bcshp", CB[:, :, None] * L, dyf)
+         + decay_tail[..., None] * torch.einsum("bcsn,bchpn->bcshp", Bf, G))
+    dx = dtf[..., None] * U + D.float()[:, None] * dyf
+    xU = (xf * U).sum(-1)                                             # (B,C,Q,H)
+    dB = (torch.einsum("bchts,bctn->bcsn", K, Cf)
+          + torch.einsum("bcsh,bcshp,bchpn->bcsn", dtf * decay_tail, xf, G))
+    dC = (torch.einsum("bchts,bcsn->bctn", K, Bf)
+          + torch.einsum("bcth,bcthp,bchpn->bctn", decay_in, dyf, H))
+    inter = decay_in * (dyf * torch.einsum("bctn,bchpn->bcthp", Cf, H)).sum(-1)
+    row_t, col_t = T.sum(-1).movedim(2, -1), T.sum(-2).movedim(2, -1)   # (B,C,Q,H)
+    d_tot = (torch.exp(a_tot) * (G * H).sum((-2, -1))
+             + (dtf * xU - col_t).sum(2))                             # (B,C,H)
+    dcum = row_t + inter - dtf * xU
+    dcum[:, :, -1] += d_tot
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = xU + Af * da
+    dA = (dtf * da).sum((0, 1, 2))
+    dD = (dyf * xf).sum((0, 1, 2, 4))
+    return (dx.reshape(b, s, h, p).to(x.dtype), ddt.reshape(b, s, h).to(dt.dtype),
+            dA.to(A.dtype), dB.reshape(b, s, n).to(Bm.dtype), dC.reshape(b, s, n).to(Cm.dtype),
+            dD.to(D.dtype), dh0)
+
+
 def ssd_decode_step(x, dt, A, Bm, Cm, D, h):
     """One-token update: x (B,H,P), dt (B,H), Bm/Cm (B,N), h (B,H,P,N)."""
     xf, dtf = x.float(), dt.float()

@@ -1,6 +1,8 @@
 """Mamba-2 SSD chunked scan: wrapper of the CUDA kernels in
 ``csrc/ssd_scan_sm90.cu`` and ``csrc/ssd_scan.cu`` (they replace the Pallas
-kernel ``repro/kernels/ssd/ssd_scan.py::ssd``).
+kernel ``repro/kernels/ssd/ssd_scan.py::ssd``) and of its backward,
+``csrc/ssd_scan_bwd.cu`` (the Pallas kernel has none: ``jax.grad``
+differentiates the plain version, ``ref.ssd_chunked``).
 
 The route is chosen by the dtype of x, B and C before the launch
 (``plan``): bfloat16 runs on the tensor cores (``wgmma`` and ``mma.sync``)
@@ -8,21 +10,26 @@ in one launch with the state kept on chip (``ssd_scan_sm90.cu``, one block
 per 16 of a head's P columns, B and C through TMA, so x, B and C need
 16-byte aligned rows); float32 runs on the FMA pipes in three launches with
 the chunk states in device memory (``ssd_scan.cu``), since a bf16 split of
-float32 operands would not hold float32's tolerance.  Each route launches
-its kernel or raises; neither falls back to the other or to the plain
-version.
+float32 operands would not hold float32's tolerance.  The backward takes
+the same routes by dtype (bf16 ``mma.sync``, float32 FMA) in
+``BWD_KERNELS`` launches.  Each route launches its kernel or raises;
+neither falls back to the other or to the plain version.
 
-On a CPU tensor the wrapper computes the plain version, ``ref.ssd_chunked``.
-On the card the kernel's outputs carry the plain version's gradient
-(``_common.PlainGrad``).  On ``meta`` tensors it checks the operands as for
-a launch, returns the outputs' shapes and counts ``cost``
-(``_common.count_meta_call``), inside the same ``PlainGrad``.
-``launches`` counts the calls that launched a kernel in this process (one
-per call on either route), those of a recomputed forward
-(``torch.utils.checkpoint``) too.
+On a CPU tensor the wrapper computes the plain version, ``ref.ssd_chunked``,
+with native autograd.  On the card a call that autograd records goes
+through ``SsdScanFn``: the forward kernel, and the backward kernel
+(``ssd_scan_bwd``: dx, ddt, dA, dB, dC, dD and dh0 from the saved inputs
+and the outputs' cotangents).  A call that autograd does not record
+(serving) launches the forward alone.  On ``meta`` tensors it checks the
+operands as for a launch, returns the outputs' shapes and counts ``cost``
+(``_common.count_meta_call``), and under autograd ``cost_backward`` as one
+``ssd_scan_bwd`` call.  ``launches`` counts the forward kernel's calls in
+this process (one per call on either route), those of a recomputed forward
+(``torch.utils.checkpoint``) too; ``bwd_launches`` the backward's.
 
 On DTensor operands (``_sharded``) batch and head shards are local (A and
-D follow x's heads); any other sharding of an operand raises.
+D follow x's heads); any other sharding of an operand raises.  The local
+calls reach ``SsdScanFn`` as any other call does.
 """
 from __future__ import annotations
 
@@ -35,9 +42,9 @@ from repro_torch.kernels import _build
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.placement_types import Replicate, Shard
 
-from repro_torch.kernels._common import (DTYPE_CODES, Cost, PlainGrad, count_meta_call,
-                                         partial_on, raise_on_error, sharded_call,
-                                         stream_handle, unit_dims_replicated)
+from repro_torch.kernels._common import (DTYPE_CODES, Cost, count_meta_call, partial_on,
+                                         raise_on_error, sharded_call, stream_handle,
+                                         unit_dims_replicated)
 from repro_torch.kernels.ssd import ref
 
 HEAD_DIMS = (16, 32, 64)   # P
@@ -47,15 +54,22 @@ KERNEL_CHUNK = 64          # both kernels' own chunk; the function does not depe
 P_TILE = 16                # P columns per block of the tensor-core kernel
 
 ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
-_ENTRIES = {"mma": "repro_ssd_scan_sm90", "fma": "repro_ssd_scan"}
+_ENTRIES = {"mma": "repro_ssd_scan_sm90", "fma": "repro_ssd_scan", "bwd": "repro_ssd_scan_bwd"}
 _ARGTYPES = {
     "mma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
            + [ctypes.c_void_p],
     "fma": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
            + [ctypes.c_void_p],
+    "bwd": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+           + [ctypes.c_void_p],
 }
+# The backward's device kernels a call: the chunks' parts of the states and
+# their cotangents, the passes over the chunks, each chunk's gradients, and
+# the sums over heads (dB, dC) and over rows and chunks (dA, dD).
+BWD_KERNELS = 4
 
 launches = 0
+bwd_launches = 0
 _fns: dict[str, object] = {}
 
 
@@ -112,6 +126,59 @@ def cost(b: int, s: int, h: int, p: int, n: int, *, chunk: int, h0: bool,
                 + 2 * b * s * n * dtype.itemsize + (state if h0 else 0) + state)
 
 
+def cost_backward(b: int, s: int, h: int, p: int, n: int, *, chunk: int, h0: bool,
+                  dtype: torch.dtype, dh_final: bool = False) -> Cost:
+    """One backward call's least work: twice the forward's products at the
+    caller's ``chunk`` (one per operand of each, ``Cost.with_backward``),
+    and x, dt, B, C and dy read, dx, ddt, dB and dC written once, with h0
+    read and dh0 written where h0 is given and dh_final read where it is,
+    all three in float32."""
+    state = b * h * p * n * 4
+    return Cost({dt: 2 * f for dt, f in cost(b, s, h, p, n, chunk=chunk, h0=h0,
+                                               dtype=dtype).flops.items()},
+                3 * b * s * h * p * dtype.itemsize + 2 * b * s * h * 4
+                + 4 * b * s * n * dtype.itemsize + (2 * state if h0 else 0)
+                + (state if dh_final else 0))
+
+
+def bwd_scratch(b: int, s: int, h: int, p: int, n: int) -> tuple[tuple[int, ...], ...]:
+    """The float32 scratch a backward call allocates: the chunks' states and
+    their cotangents, each chunk's decay, each head's dB and dC, and each
+    chunk's parts of dA and dD."""
+    nc = -(-s // KERNEL_CHUNK)
+    return (2, b, h, nc, p, n), (b, h, nc), (2, b, s, h, n), (2, b, nc, h)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The SSD scan with its backward kernel.
+
+    ``forward(ctx, fwd, bwd, kwargs, x, dt, A, Bm, Cm, D, h0)`` returns
+    ``fwd(x, dt, A, Bm, Cm, D, h0, **kwargs)``, (y, the final state), and
+    saves the inputs; ``backward`` returns ``bwd(x, dt, A, Bm, Cm, D, h0,
+    dy, dh_final, **kwargs)``: the gradients of the seven inputs, each where
+    its input needs one.  A cotangent that autograd does not need reaches
+    ``bwd`` as None (in training the final state's always does).  On the
+    card ``fwd`` and ``bwd`` are the kernels' wrappers (``meta``: their meta
+    routes); a test injects ``ref.ssd_chunked`` and ``ref.ssd_bwd_plain``
+    to hold the Function against native autograd on the CPU."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, kwargs, x, dt, A, Bm, Cm, D, h0):
+        ctx.bwd, ctx.kwargs = bwd, kwargs
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, h0)
+        ctx.set_materialize_grads(False)
+        return fwd(x, dt, A, Bm, Cm, D, h0, **kwargs)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        needs = ctx.needs_input_grad[3:]
+        inputs = ctx.saved_tensors
+        grads = ctx.bwd(*inputs, None if dy is None else dy.contiguous(),
+                        None if dh_final is None else dh_final.contiguous(),
+                        **ctx.kwargs)
+        return (None, None, None, *(g if need else None for g, need in zip(grads, needs)))
+
+
 def _check(x, dt, A, Bm, Cm, D, h0, chunk, device_type: str = "cuda"):
     b, s, h, p = x.shape
     n = Bm.shape[-1]
@@ -160,10 +227,9 @@ def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
     """x (B,S,H,P), dt (B,S,H), A/D (H,), Bm/Cm (B,S,N) single group,
     optional h0 (B,H,P,N) -> (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) f32).
 
-    On the card the kernel computes both outputs and autograd
-    differentiates them with ``ref.ssd_chunked``'s backward
-    (``_common.PlainGrad``: recomputed from the inputs; there is no backward
-    kernel), for x, dt, A, Bm, Cm, D and h0."""
+    On the card a call that autograd records goes through ``SsdScanFn``:
+    the forward kernel, and the backward kernel for x, dt, A, Bm, Cm, D and
+    h0.  Otherwise the forward kernel runs alone."""
     if isinstance(x, DTensor):
         return _sharded(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
     if x.device.type == "cpu":
@@ -171,8 +237,12 @@ def ssd(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int = 64):
     # The reference kernel's casts (ssd_scan.py:128-131); h0 is float32 too.
     dt, A, D = dt.float(), A.float(), D.float()
     h0 = None if h0 is None else h0.float()
-    kernel = _meta if x.device.type == "meta" else _launch
-    return PlainGrad.apply(kernel, ref.ssd_chunked, {"chunk": chunk}, x, dt, A, Bm, Cm, D, h0)
+    meta = x.device.type == "meta"
+    fwd = _meta if meta else _launch
+    inputs = (x, dt, A, Bm, Cm, D, h0)
+    if not (torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs)):
+        return fwd(*inputs, chunk=chunk)
+    return SsdScanFn.apply(fwd, _meta_bwd if meta else ssd_scan_bwd, {"chunk": chunk}, *inputs)
 
 
 def _sharded(x, dt, A, Bm, Cm, D, h0, *, chunk: int):
@@ -268,3 +338,71 @@ def _launch(x, dt, A, Bm, Cm, D, h0, *, chunk: int):
     global launches
     launches += 1
     return y, h_final
+
+
+def _check_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk, device_type: str) -> None:
+    _check(x, dt, A, Bm, Cm, D, h0, chunk, device_type)
+    b, s, h, p = x.shape
+    for arg, t in (("dt", dt), ("A", A), ("D", D), ("h0", h0), ("dh_final", dh_final)):
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"ssd_scan_bwd: {arg} is {t.dtype}; the kernel takes float32")
+    if dy is not None and (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+                           or dy.stride(-1) != 1):
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} on {dy.device} with "
+                         f"strides {dy.stride()}; want x's shape {tuple(x.shape)} and dtype "
+                         f"{x.dtype} on {x.device}, last dim contiguous")
+    if dh_final is not None and (dh_final.shape != (b, h, p, Bm.shape[-1])
+                                 or dh_final.device != x.device
+                                 or not dh_final.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: dh_final {tuple(dh_final.shape)} on "
+                         f"{dh_final.device}; want a contiguous ({b}, {h}, {p}, "
+                         f"{Bm.shape[-1]}) on {x.device}")
+
+
+def _grads_like(x, dt, A, Bm, Cm, D, h0):
+    """dx, ddt, dA, dBm, dCm, dD and dh0 (None without h0), each contiguous
+    in its input's dtype."""
+    return tuple(None if t is None else torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (x, dt, A, Bm, Cm, D, h0))
+
+
+def _meta_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, *, chunk: int):
+    """The backward's meta route: the gradients and the scratch allocated,
+    and ``cost_backward`` counted as one ``ssd_scan_bwd`` call."""
+    _check_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk, "meta")
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    count_meta_call("ssd_scan_bwd", cost_backward(b, s, h, p, n, chunk=chunk, h0=h0 is not None,
+                                                  dtype=x.dtype, dh_final=dh_final is not None))
+    grads = _grads_like(x, dt, A, Bm, Cm, D, h0)
+    # The scratch, live beside the gradients during the launch.
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+               for shape in bwd_scratch(b, s, h, p, n)]
+    del scratch
+    return grads
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, *, chunk: int = 64):
+    """(dx, ddt, dA, dBm, dCm, dD, dh0) of ``ssd(x, dt, A, Bm, Cm, D, h0)``
+    from the cotangents of y (``dy``, x's dtype) and of the final state
+    (``dh_final``, float32), either of which may be None (zero): one call of
+    the backward kernel (``BWD_KERNELS`` launches) for ``route(x.dtype)``.
+    dt, A, D and h0 are float32 (``ssd`` casts them).  Raises on what the
+    kernel does not take."""
+    _check_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk, "cuda")
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    grads = _grads_like(x, dt, A, Bm, Cm, D, h0)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+               for shape in bwd_scratch(b, s, h, p, n)]
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (x, dt, A, Bm, Cm, D, h0, dy, dh_final, *grads, *scratch)]
+    dy_strides = (0, 0, 0) if dy is None else dy.stride()[:3]
+    with torch.cuda.device(x.device):
+        err = _kernel("bwd")(*ptrs, DTYPE_CODES[x.dtype], b, s, h, p, n, *x.stride()[:3],
+                             *dt.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2], *dy_strides,
+                             stream_handle(x))
+    raise_on_error("ssd_scan_bwd", err)
+    global bwd_launches
+    bwd_launches += 1
+    return grads

@@ -31,8 +31,8 @@ def build_train_step(api: ModelApi, opt_cfg: OptimizerConfig, impl=None) -> Call
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     The gradients are ``torch.autograd.grad`` of ``api.train_loss`` over the
-    parameter leaves (on the card through flash attention's backward kernel
-    and the SSD scan's ``PlainGrad``).
+    parameter leaves (on the card through flash attention's and the SSD
+    scan's backward kernels).
     ``metrics`` holds loss, ce, aux, grad_norm and lr as device tensors: the
     step never waits for the host.  ``params`` and ``opt_state`` are updated
     in place (``adamw_update``).  The forward and the optimizer run inside

@@ -852,20 +852,10 @@ def test_encdec_model_through_the_kernels(card):
 
 
 # ---------------------------------------------------------------------------
-# Training: flash attention's backward kernel, the SSD kernel inside
-# autograd (its output carries the plain version's backward), the decode
-# kernel refusing a gradient, and
+# Training: flash attention's and the SSD scan's backward kernels, the
+# decode kernel refusing a gradient, and
 # a reduced train step on the card against the same step on the CPU.
 # ---------------------------------------------------------------------------
-
-def _grad_gap(kernel_out, plain_out, inputs, plain_inputs, cots):
-    """The largest gap per input between the Function's gradients and the
-    plain version's own, each over the plain gradient's max."""
-    got = torch.autograd.grad(kernel_out, inputs, cots)
-    want = torch.autograd.grad(plain_out, plain_inputs, cots)
-    return [float((g.float() - w.float()).abs().max() / w.float().abs().max())
-            for g, w in zip(got, want)]
-
 
 # (b, s_q, s_kv, h, kv, d, causal, window, q_offset): every head dim, GQA
 # groups up to 16, a window, S_q != S_kv with and without a causal mask.
@@ -977,9 +967,70 @@ def test_flash_backward_refuses_what_the_kernel_does_not_take(card):
         fa.flash_attention_bwd(q, k, k, out, lse, out.cpu(), **kw)
 
 
+SSD_GRAD_F32_RTOL = 1e-4   # float32 kernel vs plain: the same sums in another order
+SSD_NAMES = ("x", "dt", "A", "Bm", "Cm", "D", "h0")
+
+
+def _ssd_grad_reference(inputs, dy, dh_final, dtype, chunk):
+    """(the gradients to hold the backward kernel's against, each input's
+    tolerance relative to its max|g|), for the inputs given (h0 may be
+    None).  float32: ``ssd_ref.ssd_bwd_plain`` on the same inputs, within
+    SSD_GRAD_F32_RTOL.  bf16: the float32 plain gradient of the same inputs
+    upcast, within the larger of twice the bf16 plain route's own gap to it
+    (native autograd of ``ssd_ref.ssd_chunked`` on the bf16 inputs) and one
+    bf16 step."""
+    up = [None if t is None else t.float() for t in inputs]
+    want = [g for g in ssd_ref.ssd_bwd_plain(*up, None if dy is None else dy.float(), dh_final,
+                                             chunk=chunk) if g is not None]
+    if dtype == torch.float32:
+        return want, [SSD_GRAD_F32_RTOL] * len(want)
+    leaves = [t.clone().requires_grad_() for t in inputs if t is not None]
+    args = leaves + [None] * (7 - len(leaves))
+    y, hf = ssd_ref.ssd_chunked(*args[:6], h0=args[6], chunk=chunk)
+    pairs = [(o, c) for o, c in ((y, dy), (hf, dh_final)) if c is not None]
+    plain = torch.autograd.grad([o for o, _ in pairs], leaves, [c for _, c in pairs],
+                                allow_unused=True)
+    return want, [max(2 * (0.0 if p is None else _rel_gap(p, w)), BF16_STEP)
+                  for p, w in zip(plain, want)]
+
+
+# SSD_KERNEL_CASES (tests/test_kernels.py's and test_ssd_initial_state's),
+# then mamba2-370m's widths over ragged lengths, with and without h0.
+SSD_GRAD_CASES = SSD_KERNEL_CASES + [
+    (1, 300, 32, 64, 128, 128, True),
+    (2, 129, 32, 64, 128, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", SSD_GRAD_CASES)
+def test_ssd_backward_kernel_matches_plain(case, dtype, card):
+    """``ssd_scan_bwd`` (the final state's cotangent given) against
+    ``_ssd_grad_reference``: every gradient, dh0 where h0 is given; a
+    second call gives the same bits (no atomics)."""
+    b, s, h, p, n, chunk, with_h0 = case
+    inputs = list(_ssd_inputs(card, b, s, h, p, n, dtype, with_h0))
+    dy = _randn(card, (b, s, h, p), dtype)
+    dh = torch.randn((b, h, p, n), generator=card, device="cuda")
+    before = ssd_scan.bwd_launches
+    got = ssd_scan.ssd_scan_bwd(*inputs, dy, dh, chunk=chunk)
+    again = ssd_scan.ssd_scan_bwd(*inputs, dy, dh, chunk=chunk)
+    assert ssd_scan.bwd_launches == before + 2
+    assert (got[6] is None) == (not with_h0)
+    assert all(g is None or (g.dtype == t.dtype and g.shape == t.shape)
+               for g, t in zip(got, inputs))
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+    want, tols = _ssd_grad_reference(inputs, dy, dh, dtype, chunk)
+    gaps = [_rel_gap(g, w) for g, w in zip([g for g in got if g is not None], want)]
+    assert all(g <= t for g, t in zip(gaps, tols)), (dict(zip(SSD_NAMES, gaps)), tols)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("with_h0", [False, True], ids=["no_h0", "h0"])
 def test_ssd_gradients_through_the_kernel(with_h0, dtype, card):
+    """Autograd through ``ssd_ops.ssd``: one forward launch and one launch
+    of the backward kernel (it was the plain version's backward until the
+    kernel existed); the gradients held as ``_ssd_grad_reference`` says."""
     b, s, h, p, n, chunk = 2, 200, 4, 32, 16, 64
     x = (torch.randn((b, s, h, p), generator=card, device="cuda") * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=card, device="cuda"))
@@ -997,14 +1048,76 @@ def test_ssd_gradients_through_the_kernel(with_h0, dtype, card):
         args = args + [None] * (7 - len(args))
         return fn(*args[:6], h0=args[6], chunk=chunk)
 
-    before = ssd_scan.launches
+    before = (ssd_scan.launches, ssd_scan.bwd_launches)
     out = call(ssd_ops.ssd, leaves)
-    assert ssd_scan.launches == before + 1
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == (before[0] + 1, before[1])
     want = call(ssd_ref.ssd_chunked, plain)
     _assert_ssd_close([t.detach() for t in out], [t.detach() for t in want], dtype)
-    gaps = _grad_gap(list(out), list(want), leaves, plain, cots)
-    assert len(gaps) == (7 if with_h0 else 6)
-    assert max(gaps) <= 1e-5, gaps
+    got = torch.autograd.grad(list(out), leaves, cots)
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert len(got) == (7 if with_h0 else 6)
+    ref_grads, tols = _ssd_grad_reference(inputs + [None] * (7 - len(inputs)), *cots, dtype,
+                                          chunk)
+    gaps = [_rel_gap(g, w) for g, w in zip(got, ref_grads)]
+    assert all(g <= t for g, t in zip(gaps, tols)), (gaps, tols)
+
+
+def test_ssd_backward_is_its_documented_device_kernels(card):
+    """Each backward call is ``BWD_KERNELS`` device kernels of
+    ``csrc/ssd_scan_bwd.cu``, in the order its launches run (chunk states,
+    passing walk, gradients, head sums), in both dtypes: the last three of
+    four calls in one profiler session.  The first call is not counted: on
+    the card the profiler has lost a session's first device events after
+    earlier sessions in the same process (the training step's profile
+    counts every launch).  A session that does not show the pattern is
+    taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    order = ("ssd_bwd_states", "ssd_bwd_passing", "ssd_bwd_grads", "ssd_bwd_reduce")
+    assert len(order) == ssd_scan.BWD_KERNELS
+    calls = 3
+    for dtype in DTYPES:
+        inputs = _ssd_inputs(card, 2, 300, 32, 64, 128, dtype)
+        dy = _randn(card, (2, 300, 32, 64), dtype)
+        ssd_scan.ssd_scan_bwd(*inputs, dy, None)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(1 + calls):
+                    ssd_scan.ssd_scan_bwd(*inputs, dy, None)
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            names = [e.name for e in events]
+            assert len(names) <= (1 + calls) * len(order), names
+            kinds = [next((k for k in order if k in nm), nm) for nm in names]
+            if kinds[-calls * len(order):] == list(order) * calls:
+                break
+        assert kinds[-calls * len(order):] == list(order) * calls, names
+
+
+def test_ssd_backward_refuses_what_the_kernel_does_not_take(card):
+    """A bf16 operand that ``_check`` refuses raises; nothing runs the plain
+    version instead."""
+    b, s, h, p, n = 1, 64, 2, 32, 16
+    x, dt, A, Bm, Cm, D, _ = _ssd_inputs(card, b, s, h, p, n, torch.bfloat16)
+    dy = _randn(card, (b, s, h, p), torch.bfloat16)
+    before = ssd_scan.bwd_launches
+    shifted = torch.empty(b * s * h * p + 1, dtype=torch.bfloat16, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan.ssd_scan_bwd(shifted, dt, A, Bm, Cm, D, None, dy, None)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy.float(), None)
+    with pytest.raises(ValueError, match="dh_final"):
+        ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy,
+                              torch.zeros((b, h, p, n + 1), device="cuda"))
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan.ssd_scan_bwd(x, dt.bfloat16(), A, Bm, Cm, D, None, dy, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan.ssd_scan_bwd(x.cpu(), dt, A, Bm, Cm, D, None, dy, None)
+    assert ssd_scan.bwd_launches == before
 
 
 def test_decode_kernel_refuses_a_gradient(card):

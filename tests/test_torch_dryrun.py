@@ -233,6 +233,30 @@ def test_ssd_meta_route(dtype, with_h0):
     assert sink.calls == [("ssd", cost)]
 
 
+@pytest.mark.parametrize("with_h0", (False, True))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_ssd_meta_route_backward_is_the_kernel(dtype, with_h0):
+    """Under autograd the SSD call on meta counts the forward's ``cost``
+    and one ``ssd_scan_bwd`` call of ``cost_backward`` (it was the plain
+    version's eager ops until the backward kernel existed), launches
+    nothing, and gives every input a gradient of its shape and dtype."""
+    b, s, h, p, n, chunk = 2, 100, 4, 32, 16, 32
+    inputs = [t for t in _ssd_inputs(b, s, h, p, n, dtype, with_h0) if t is not None]
+    meta = [t.to("meta").requires_grad_() for t in inputs]
+    counter = dryrun.WorkCounter()
+    before = (ssd_scan.launches, ssd_scan.bwd_launches)
+    with counting_costs(counter), counter:
+        y, _ = ssd_scan.ssd(*meta[:6], h0=meta[6] if with_h0 else None, chunk=chunk)
+        grads = torch.autograd.grad(y, meta, torch.empty_like(y))
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == before
+    assert [(g.shape, g.dtype) for g in grads] == [(t.shape, t.dtype) for t in meta]
+    assert counter.kernels == {"ssd": 1, "ssd_scan_bwd": 1}
+    fwd = ssd_scan.cost(b, s, h, p, n, chunk=chunk, h0=with_h0, dtype=dtype)
+    bwd = ssd_scan.cost_backward(b, s, h, p, n, chunk=chunk, h0=with_h0, dtype=dtype)
+    assert counter.flops == {dtype: fwd.flops[dtype] + bwd.flops[dtype]}
+    assert counter.bytes >= fwd.bytes + bwd.bytes
+
+
 def test_meta_route_checks_operands_as_a_launch():
     """What the kernel does not take is refused on meta as on the card."""
     q = torch.empty((1, 8, 4, 80), dtype=torch.bfloat16, device="meta")  # head dim 80
