@@ -16,9 +16,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 flash kernel (D = 32, 64, 128 with one and two consumer warpgroups,
    D = 256 with one) must have ``HGMMA`` (``wgmma``), and each bf16 SSD
    kernel both ``HGMMA`` (C·Bᵀ) and ``HMMA`` (``mma.sync``, the other
-   products), and each bf16 kernel of flash attention's backward (dK/dV and
-   dQ, D = 32 to 256) and of the SSD scan's (its chunk-state and gradient
-   passes) ``HMMA``.
+   products), each bf16 kernel of flash attention's backward (its dK/dV and
+   dQ passes, ``dkdv_sm90_kernel`` and ``dq_sm90_kernel``, D = 32 to 256)
+   ``HGMMA``, and each bf16 product kernel of the SSD scan's backward (its
+   chunk-state and gradient passes) ``HMMA``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the shape cases of ``tests/test_kernels.py`` (attention: float32
    atol 1e-4, bfloat16 atol 2e-2; SSD: float32 atol 1e-4, bfloat16 atol
@@ -49,7 +50,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    route's own gap or one bf16 step), two backward calls bit-equal; timed
    at the training shapes: forward and backward through the kernels, the
    old route (the kernel forward with the plain backward, ``PlainGrad``)
-   and SDPA's, and the backward alone beside the plain one and SDPA's.
+   and SDPA's, and the backward alone beside the plain one and SDPA's; and
+   in a child process (``--bwd-launches``, so that the profiler never
+   attaches to this one) each device kernel of one bf16 backward call at
+   the two training shapes, by ``torch.profiler``: the launches a call must
+   be (``flash_attention.bwd_plan``) and each one's device ms.
    The SSD scan's backward kernel through ``SsdScanFn`` at the same cases
    and mamba2-370m's 4 x 4096 (32 heads of P 64, N 128), with and without
    ``h0``: one forward and one backward launch, every gradient (x, dt, A,
@@ -433,21 +438,22 @@ def phase_build() -> None:
     flash = {k: c.get("HGMMA", 0) for k, c in counts.items() if "flash_sm90_kernel" in k}
     ssd = {k: c for k, c in counts.items() if "ssd_sm90_kernel" in k}
     # The backward's dK/dV and dQ passes in bf16, D = 32, 64, 128, 256.
-    bwd = {k: c.get("HMMA", 0) for k, c in counts.items()
-           if "dkdv_mma_kernel" in k or "dq_mma_kernel" in k}
+    bwd = {k: c.get("HGMMA", 0) for k, c in counts.items()
+           if "dkdv_sm90_kernel" in k or "dq_sm90_kernel" in k}
     # The SSD backward's products in bf16: its chunk-state and gradient passes.
     ssd_bwd = {k: c.get("HMMA", 0) for k, c in counts.items()
                if ("ssd_bwd_states" in k or "ssd_bwd_grads" in k) and "bfloat16" in k}
     print(f"sass: {sum(c.get('HGMMA', 0) for c in counts.values())} HGMMA instructions, "
           f"{sum(flash.values())} in {len(flash)} bf16 flash kernels; bf16 SSD kernels "
           f"(HGMMA, HMMA): {sorted((c.get('HGMMA', 0), c.get('HMMA', 0)) for c in ssd.values())}; "
-          f"{sum(bwd.values())} HMMA in {len(bwd)} bf16 flash backward kernels; "
+          f"{sum(bwd.values())} HGMMA in {len(bwd)} bf16 flash backward kernels "
+          f"({sorted(bwd.values())}); "
           f"{sum(ssd_bwd.values())} HMMA in {len(ssd_bwd)} bf16 SSD backward kernels "
           f"({sorted(ssd_bwd.values())})", flush=True)
     check(len(flash) == 7 and all(flash.values()),
           "the bf16 flash kernels do not run on the tensor cores (no HGMMA in their SASS)")
     check(len(bwd) == 8 and all(bwd.values()),
-          f"the bf16 flash backward kernels do not run on the tensor cores: {bwd}")
+          f"the bf16 flash backward kernels do not run on wgmma (no HGMMA in their SASS): {bwd}")
     check(len(ssd) == 4 and all(c.get("HGMMA", 0) and c.get("HMMA", 0) for c in ssd.values()),
           f"the bf16 SSD kernels do not run on the tensor cores: {ssd}")
     check(len(ssd_bwd) == 2 and all(ssd_bwd.values()),
@@ -847,6 +853,49 @@ def check_flash_grad(case, dtype, timed: bool) -> dict:
     return row
 
 
+def flash_bwd_launch_split(calls: int = 5) -> None:
+    """Each device kernel of one bf16 flash backward call at the timed
+    training shapes, by ``torch.profiler``: its device ms and launches per
+    call, over ``calls`` calls after two outside the profiler (the L2 cache
+    flushed before each call; the flush's fill kernel is left out).  Run in
+    a child process (``--bwd-launches``) so that the profiler never attaches
+    to the process whose later phases read the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.attention import flash_attention as fa
+
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=DEVICE)
+    for case in GRAD_FLASH_TRAIN + GRAD_FLASH_RG:
+        b, s_q, s_kv, h, kv, d, causal, window = case
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        qkv = [_randn(gen, (b, s, n, d), torch.bfloat16)
+               for s, n in ((s_q, h), (s_kv, kv), (s_kv, kv))]
+        cot = _randn(gen, (b, s_q, h, d), torch.bfloat16)
+        kw = dict(causal=causal, window=window, q_offset=s_kv - s_q if causal else 0)
+        out, lse = fa._launch(*qkv, lse=True, **kw)
+        for _ in range(2):
+            fa.flash_attention_bwd(*qkv, out, lse, cot, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fa.flash_attention_bwd(*qkv, out, lse, cot, **kw)
+            torch.cuda.synchronize()
+        split: dict[str, list] = {}
+        for e in _device_events(prof):
+            if "FillFunctor" in e.name:
+                continue
+            name = re.sub(r"^void |repro::|\(anonymous namespace\)::", "", e.name).split("(")[0]
+            split.setdefault(name, [0.0, 0])
+            split[name][0] += e.time_range.elapsed_us() / 1e3 / calls
+            split[name][1] += 1
+        emit({"phase": "kernel_grad_launches", "kernel": "flash_attention", "case": list(case),
+              "dtype": "bfloat16", "device_ms": {k: v[0] for k, v in split.items()},
+              "launches_per_call": {k: v[1] / calls for k, v in split.items()},
+              "total_device_ms": sum(v[0] for v in split.values())})
+        del qkv, cot, out, lse, prof
+
+
 def check_ssd_grad(case, dtype, timed: bool) -> dict:
     """The forward kernel's outputs, and the backward kernel's gradients
     through ``SsdScanFn`` (one launch of each; the cotangents of y and of the
@@ -1013,6 +1062,30 @@ def phase_gradients() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     check_decode_refuses_grad()
+    rows["flash_bwd_launches"] = flash_bwd_launches_in_child()
+    return rows
+
+
+def flash_bwd_launches_in_child() -> list[dict]:
+    """``flash_bwd_launch_split`` in a child process (the library it loads is
+    this run's build): its lines, each checked to be the launches that
+    ``flash_attention.bwd_plan`` lays out, once each per call."""
+    from repro_torch.kernels.attention import flash_attention as fa
+
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bwd-launches"],
+                           capture_output=True, text=True, timeout=900)
+    check(child.returncode == 0, f"--bwd-launches exited {child.returncode}:\n{child.stderr}")
+    rows = [json.loads(line) for line in child.stdout.splitlines()
+            if line.startswith("{") and "kernel_grad_launches" in line]
+    check(len(rows) == len(GRAD_FLASH_TRAIN + GRAD_FLASH_RG), f"--bwd-launches: {child.stdout}")
+    for row in rows:
+        emit(row)
+        b, s_q, s_kv, h, kv, d, causal, window = row["case"]
+        plan = fa.bwd_plan(b, s_q, s_kv, h, kv, d, causal=causal, window=window,
+                           q_offset=s_kv - s_q if causal else 0, dtype=torch.bfloat16)
+        seen = {name.split("<")[0]: n for name, n in row["launches_per_call"].items()}
+        check(seen == dict.fromkeys(plan.kernels, 1.0),
+              f"flash backward {row['case']}: device kernels {seen}, planned {plan.kernels}")
     return rows
 
 
@@ -2472,9 +2545,10 @@ def _logits_ce_ms(api, params, batch: int, seq: int) -> float:
 
 
 # The device kernels of the backward kernels: flash attention's
-# (flash_attention_bwd.cu) and the SSD scan's (ssd_scan_bwd.cu, ssd_bwd_*).
-BWD_KERNEL_NAMES = ("delta_kernel", "dkdv_mma_kernel", "dq_mma_kernel", "dkdv_fma_kernel",
-                    "dq_fma_kernel", "ssd_bwd_")
+# (flash_attention_bwd.cu: flash_attention.bwd_plan's kernels of both
+# routes) and the SSD scan's (ssd_scan_bwd.cu, ssd_bwd_*).
+BWD_KERNEL_NAMES = ("delta_kernel", "dkdv_sm90_kernel", "dkdv_sum_kernel", "dq_sm90_kernel",
+                    "dkdv_fma_kernel", "dq_fma_kernel", "ssd_bwd_")
 
 
 def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> dict:
@@ -2482,8 +2556,8 @@ def profile_train_step(arch: str, batch: int, seq: int, host_s: float) -> dict:
     outside it): the device time over the median host-clock step time of
     ``phase_train_whole`` (the busy share), and the device time of the
     forward kernel (forward and recompute), of the backward kernel (flash
-    attention's three passes or the SSD scan's four) and its share, of the
-    plain backward (the ``plain_grad.*`` ranges: ``plain_grad.flash_plain``
+    attention's three or four passes or the SSD scan's four) and its share,
+    of the plain backward (the ``plain_grad.*`` ranges: ``plain_grad.flash_plain``
     and ``plain_grad.ssd_chunked`` must read 0), of the forward and of the
     optimizer (``train_step.*``), beside the logits and CE timed alone at
     the step's shapes."""
@@ -3290,6 +3364,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
 
+    if sys.argv[1:] == ["--bwd-launches"]:  # phase 3b's child process
+        flash_bwd_launch_split()
+        return
     t0 = time.perf_counter()
 
     def lap(after: str) -> None:  # the script's time so far, per phase
@@ -3414,6 +3491,7 @@ def main() -> None:
         "bound_by": g["bwd_bound_by"], "library_ms": g["sdpa_bwd_ms"],
         "fwd_bwd_ms": g["kernel_fwd_bwd_ms"], "old_route_fwd_bwd_ms": g["old_route_fwd_bwd_ms"],
         "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"], "shape": g["case"], "dtype": g["dtype"],
+        "per_launch_device_ms": grads["flash_bwd_launches"][0]["device_ms"],
     })
     # The SSD scan's backward: the gradient of the SSD kernel below (the TPU
     # kernel has no backward; jax.grad differentiates ref.ssd_chunked), at

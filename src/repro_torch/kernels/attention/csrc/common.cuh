@@ -1,7 +1,8 @@
 // Helpers shared by the kernels: 16-byte vector loads converted to
 // float, scalar conversions for the two element types the kernels take
 // (float32 and bfloat16), and the PTX wrappers (cp.async, mbarrier,
-// ldmatrix, mma.sync, wgmma) and the TMA encoder more than one kernel uses.
+// ldmatrix, mma.sync, wgmma, TMA loads) and the TMA encoder and
+// tensor maps more than one kernel uses.
 #pragma once
 
 #include <cuda.h>
@@ -169,6 +170,76 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// wgmma groups: wait until at most N are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// One 4-D TMA tile load into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// The coordinates (col, head, row, batch) of a (B, S, heads, D) view in the
+// dimension order of its tensor map.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, const int* dims,
+                                         uint64_t* bar, int col, int head, int row, int batch) {
+  // Selects rather than an array indexed at run time, which would live in
+  // local memory.
+  const int c1 = dims[0] == 1 ? head : dims[1] == 1 ? row : batch;
+  const int c2 = dims[0] == 2 ? head : dims[1] == 2 ? row : batch;
+  const int c3 = dims[0] == 3 ? head : dims[1] == 3 ? row : batch;
+  tma_load_4d(dst, map, bar, col, c1, c2, c3);
+}
+
+// D (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // cuTensorMapEncodeTiled is a driver API; the runtime hands out its entry
 // point, so the library needs no link against libcuda.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -191,6 +262,51 @@ inline EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// Tensor map of a (B, S, heads, D) bf16 view with element strides sb, ss,
+// sh (D contiguous), boxes of box_cols x 1 head x box_rows x 1.  The three
+// outer dimensions go in order of stride; dims[0..2] receives the position
+// of the head, sequence and batch dimension.  Returns false if the driver
+// refuses the map.
+inline bool make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
+                          long long sb, long long ss, long long sh, int box_cols, int box_rows,
+                          int* dims) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  long long size[3] = {heads, S, B};
+  long long stride[3] = {sh, ss, sb};
+  // A dimension of size 1 may carry any stride; give it one past the others.
+  long long extent = D;
+  for (int i = 0; i < 3; ++i)
+    if (size[i] > 1) extent = stride[i] * size[i] > extent ? stride[i] * size[i] : extent;
+  for (int i = 0; i < 3; ++i)
+    if (size[i] == 1) stride[i] = extent;
+  int order[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (stride[order[j]] < stride[order[i]]) {
+        const int t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+      }
+  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int which = order[i];
+    gdim[i + 1] = static_cast<cuuint64_t>(size[which]);
+    gstride[i] = static_cast<cuuint64_t>(stride[which]) * 2;
+    if (which == 1) box[i + 1] = static_cast<cuuint32_t>(box_rows);
+    dims[which] = i + 1;
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim, gstride, box,
+      estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
 }
 
 }  // namespace repro

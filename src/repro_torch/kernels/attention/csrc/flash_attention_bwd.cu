@@ -13,41 +13,67 @@
 // What bounds it on an H100: operations.  The least work is twice the
 // forward's products, 8·B·H·D per visible (query, key) pair, over the 989
 // TFLOP/s bf16 tensor-core peak (67 TFLOP/s float32 on FMA); its bytes are
-// q, k, v, o, dO and lse read and dq, dk, dv written once.
+// q, k, v, o, dO and lse read and dq, dk, dv written once.  Only `wgmma`
+// reaches the tensor cores' rate, with its operands in shared memory in the
+// swizzled layouts that TMA writes; and the card has 132 SMs to fill.
 //
-// What the design does about it (FlashAttention-2's two passes, without
+// What the design does about it (FlashAttention-2's two passes, on
+// FlashAttention-3's shape of two consumer warpgroups of 64 rows, without
 // atomics, so that two calls give the same bits):
 //   * Δ = rowsum(dO ∘ O) in float32, one warp per (batch, head, row)
 //     (delta_kernel), into a (B, H, S_q) scratch the wrapper allocates.
-//   * dK and dV: one block per (key tile of 64, kv head, batch row).  Each
-//     warp owns 16 keys; the block loops over the G query heads of its kv
-//     head and over the query tiles that can see its keys (the causal and
-//     window bands bound the loop), so GQA's sum over the group stays in
-//     registers.  Per (query tile, key tile): Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ,
-//     P = exp2(S·scale·log2e − lse·log2e) on the accumulator fragment, dV
-//     += Pᵀ·dO with P rounded to bf16 (where the forward rounds it), dS = P
-//     ∘ (dP − Δ), dK += dSᵀ·Q.  Q and dO tiles are double-buffered by
-//     cp.async while the previous pair computes.
-//   * dQ: one block per (query tile of 64, head, batch row), each warp 16
-//     rows, over the key tiles the rows can see (double-buffered):
-//     S = Q·Kᵀ, dP = dO·Vᵀ, dS, dQ += dS·K.
-//   * bf16 runs on the tensor cores with mma.sync m16n8k16 (f32 sums)
-//     whose operands come from shared memory by ldmatrix (.trans for the
-//     operands read along their rows); the tiles are stored with their
-//     16-byte chunks XOR-swizzled by row so that ldmatrix's eight rows hit
-//     distinct banks.  The accumulator fragment of Sᵀ, dPᵀ (or S, dP) is
-//     the A fragment of the next product, as P is in the forward.
-//   * At D = 256 (recurrentgemma-9b: 16 heads on 1, window 2048) one
-//     warp's dK and dV (or dQ) over all 256 columns would need 256 floats a
-//     thread: the block has two warps per 16 rows, each owning 128 columns
-//     of the accumulators and both computing the tile's S and dP.
+//   * dK and dV (dkdv_sm90_kernel): one block per (128 keys, query head,
+//     batch row), not per kv head, so that GQA's G heads do not run one
+//     after another inside a block: B·H·S_kv/128 blocks (768 at
+//     qwen2-vl-2b's 2 x 4096, 12 heads on 2, where one block per kv head
+//     and 64 keys gave 256).  Each block loops over the query tiles of its
+//     head that see its keys (the causal and window bands bound the loop).
+//     Where G > 1 each block writes its head's dK and dV in float32 to a
+//     (2, B, S_kv, H, D) scratch and dkdv_sum_kernel sums each group's G
+//     heads in head order, so the sum's order is fixed whatever the
+//     scheduling; at G = 1 the block writes dk and dv itself.  The blocks
+//     with the most query tiles go first (under the causal mask, the first
+//     key tiles).
+//   * dQ (dq_sm90_kernel): one block per (128 query rows, head, batch row),
+//     over the key tiles its rows see, the last query rows first under the
+//     causal mask.  It recomputes S and dP, so that dQ needs no atomics
+//     across the dK/dV pass's blocks.
+//   * A block is two consumer warpgroups of 64 rows each (at D = 256 one
+//     64-row group, each warpgroup owning 128 of the columns: 128
+//     accumulator floats a thread for each of dK and dV would not fit; both
+//     compute the tile's S and dP).  The streamed 64-row tiles (Q and dO;
+//     K and V) are shared by both.  Warp 0 keeps the copies in flight: TMA
+//     loads (`cp.async.bulk.tensor`, 128-byte swizzle; 64-byte at D = 32)
+//     of the block's own tiles once, and of the streamed tiles STAGES - 1
+//     ahead into a ring (3 stages, 2 at D = 256) with full and empty
+//     `mbarrier`s, and with each query tile its rows' lse and Δ by
+//     `cp.async` whose completion the full barrier counts.  The tensor maps
+//     cover the caller's (B, S, heads, D) views through their strides; rows
+//     past S are zero-filled.  No producer warpgroup and no `setmaxnreg`:
+//     with a producer warpgroup handing its registers to the consumers
+//     (setmaxnreg 24/232, two blocks an SM), ptxas (CUDA 12.9) spilled in
+//     dK/dV's loop at D = 128 and serialised its wgmma, and the backward
+//     ran 1.6x slower than with the registers given at launch (PERF.md §6,
+//     tools/flash_bwd_variants.py); a lone producer warp caps a 288-thread
+//     block at 168 registers a thread.  256 threads at up to 255 registers:
+//     one block an SM.
+//   * Per pair of tiles, on each consumer warpgroup: Sᵀ = K·Qᵀ and dPᵀ =
+//     V·dOᵀ (S = Q·Kᵀ and dP = dO·Vᵀ in the dQ pass) are `wgmma` m64n64k16
+//     with both operands in shared memory, issued together; P =
+//     exp2(S·scale·log2e − lse·log2e) on the accumulator fragment while dP
+//     runs, rounded to bf16 (where the forward rounds P) into register A
+//     fragments; dS = P ∘ (dP − Δ), rounded the same; then dV += Pᵀ·dO and
+//     dK += dSᵀ·Q (dQ += dS·K) as `wgmma` m64nDk16 with dO and Q (K) read
+//     MN-major from shared memory.  A warpgroup skips a tile pair with no
+//     visible pair.
+//   * A key past S_kv is zero-filled and scores 0, not -inf: it is masked
+//     to P = 0 as are keys outside the band and query rows past S_q; a row
+//     that sees no key (lse = -inf) gets P = 0.
 //   * float32 runs on the FMA pipes (a TF32 product would miss float32's
 //     tolerance): 32 x 32 tiles in shared memory padded by one float, 128
 //     threads as 16 x 8, each owning 2 x 4 scores and 2 rows x D/8 columns
-//     of the accumulators.
-//   * A key past S_kv is zero-filled and scores 0, not -inf: it is masked
-//     to P = 0 as are keys outside the band; a query row past S_q, or one
-//     that sees no key (lse = -inf), gets P = 0.
+//     of the accumulators; its dK/dV block loops over the G heads of its kv
+//     head.
 #include <math.h>
 
 #include "common.cuh"
@@ -61,6 +87,7 @@ struct BwdArgs {
   const void *q, *k, *v, *o, *dout;
   const float* lse;  // (B, H, S_q), natural log
   float* delta;      // (B, H, S_q) scratch
+  float* acc;        // bf16 at G > 1: per-head dK, dV, (2, B, S_kv, H, D) float32 scratch
   void *dq, *dk, *dv;
   int B, S_q, S_kv, H, KV, G;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -106,14 +133,6 @@ __device__ __forceinline__ bool edge_tile(const BwdArgs& a, int q0, int rows, in
          (a.window > 0 && k0 <= q0 + rows - 1 + a.q_offset - a.window);
 }
 
-// lse in log2 units for P = exp2(s·scale·log2e − lse2); +inf (P = 0) for a
-// row past S_q or one that sees no key.
-__device__ __forceinline__ float lse2_of(const BwdArgs& a, long long idx, bool valid) {
-  if (!valid) return INFINITY;
-  const float l = a.lse[idx];
-  return l == -INFINITY ? INFINITY : l * kLog2e;
-}
-
 // ---------------------------------------------------------------------------
 // Δ = rowsum(dO ∘ O)
 // ---------------------------------------------------------------------------
@@ -138,332 +157,418 @@ __global__ void __launch_bounds__(kDeltaWarps * 32) delta_kernel(BwdArgs a, int 
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync on the tensor cores
+// bfloat16: wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kKeys = 64;  // keys per dK/dV block (16 per warp)
-constexpr int kRows = 64;  // query rows per dQ block (16 per warp)
+constexpr int kTile = 64;  // rows of a tile (keys or query rows): one wgmma M
 
+// A pass's block: two consumer warpgroups, 256 threads, one block per SM.
+// Below D = 256 each warpgroup owns 64 of the block's 128 rows (keys of
+// dK/dV, query rows of dQ) and every column; at D = 256 both own the
+// block's 64 rows and each half of the columns (both compute S and dP).
 template <int D>
-struct Mma {
-  static constexpr int DC = D < 128 ? D : 128;   // accumulator columns per warp
-  static constexpr int NCG = D / DC;             // warps per 16 rows
-  static constexpr int THREADS = 128 * NCG;
-  static constexpr int BQ = D <= 64 ? 64 : 32;   // query rows per step of the dK/dV block
-  static constexpr int BK = D <= 64 ? 64 : 32;   // keys per step of the dQ block
-  static constexpr int DKDV_SMEM = (2 * kKeys * D + 4 * BQ * D) * 2 + 4 * BQ * 4;
-  static constexpr int DQ_SMEM = (2 * kRows * D + 4 * BK * D) * 2 + 2 * kRows * 4;
+struct Sm90 {
+  static constexpr int BOXC = D < 64 ? D : 64;            // columns per TMA box
+  static constexpr int SWZ = BOXC * 2;                     // bytes per swizzled row: 128 or 64
+  static constexpr uint32_t LAYOUT = SWZ == 128 ? 1 : 2;   // descriptor swizzle mode
+  static constexpr int NCH = D / BOXC;                     // column boxes per row
+  static constexpr int TILE = kTile * D * 2;               // bytes of one 64-row tile
+  static constexpr int CW = D == 256 ? 2 : 1;              // warpgroups per 64 rows
+  static constexpr int RW = 2 / CW;                        // 64-row groups per block
+  static constexpr int ROWS = kTile * RW;                  // the block's own rows
+  static constexpr int DC = D / CW;                        // accumulator columns a warpgroup
+  static constexpr int THREADS = 256;
+  static constexpr int STAGES = D == 256 ? 2 : 3;          // depth of the streamed ring
+  // The two operands' own tiles, STAGES pairs of streamed tiles, the rows'
+  // statistics (STAGES x 2 x 64 streamed, 2 x ROWS own), the barriers, and
+  // 1024 bytes to align the tiles.
+  static constexpr int SMEM = 1024 + (2 * RW + 2 * STAGES) * TILE +
+                              (STAGES * 2 * kTile + 2 * ROWS) * 4 + (1 + 2 * STAGES) * 8;
 };
 
-// Element offset of the 16-byte chunk c of row r in a tile of rows of D
-// bf16 values, chunks XOR-swizzled by row.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int CG = D / 8;
-  constexpr int M = (CG < 8 ? CG : 8) - 1;
-  return r * D + ((c ^ (r & M)) << 3);
+// The two tiles a pass keeps (K, V; Q, dO) and the two it streams (Q, dO;
+// K, V): the positions (1..3) of the head, sequence and batch coordinates
+// in each tensor map's dimension order.
+struct MapDims {
+  int r0[3], r1[3], t0[3], t1[3];
+};
+
+// D (64 x DC, f32) += A (64 x 16, registers) · B (16 x DC, shared, MN-major).
+template <int DC>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_rs_n128(d, a, db);
 }
 
-// `rows` rows of D values from `src` (row stride `stride`) into a swizzled
-// tile; rows at or past `valid` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride, int valid,
-                                          int rows, int tid, int nthreads) {
-  constexpr int CG = D / 8;
-  for (int idx = tid; idx < rows * CG; idx += nthreads) {
-    const int r = idx / CG;
-    const int c = idx % CG;
-    const bool ok = r < valid;
-    cp_async16(dst + swz<D>(r, c), src + static_cast<long long>(ok ? r : 0) * stride + c * 8, ok);
+// Keeps a register A fragment alive until the wgmma that reads it is done.
+__device__ __forceinline__ void keep(const uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    asm volatile("" ::"r"(f[t][0]), "r"(f[t][1]), "r"(f[t][2]), "r"(f[t][3]));
+}
+
+// A 64 x 64 f32 accumulator fragment in bf16, as the four A fragments of a
+// product over its 64 columns: columns 16t..16t+15 are registers 8t..8t+7.
+__device__ __forceinline__ void to_a(uint32_t (&f)[4][4], const float* s) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) f[t][x] = pack_bf16(s[8 * t + 2 * x], s[8 * t + 2 * x + 1]);
+}
+
+// cp.async of one float, zero-filled when !valid; and an arrival on `bar`
+// once this thread's earlier cp.async copies have landed (counted in the
+// barrier's arrivals: .noinc).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Rows row0 .. row0 + rows - 1 of head h: the lse (natural log) at
+// dst[0..rows) and Δ at dst[rows..2·rows), copied by the 32 lanes of a warp;
+// rows past S_q read 0 (their Q and dO rows are zero, so P·dO and dS·Q add
+// nothing).
+__device__ __forceinline__ void load_stats(const BwdArgs& a, float* dst, int b, int h, int row0,
+                                           int rows, int lane) {
+  for (int r = lane; r < rows; r += 32) {
+    const bool ok = row0 + r < a.S_q;
+    const long long idx = ok ? (static_cast<long long>(b) * a.H + h) * a.S_q + row0 + r : 0;
+    cp_async_f32(dst + r, a.lse + idx, ok);
+    cp_async_f32(dst + rows + r, a.delta + idx, ok);
   }
 }
 
-// acc (16 x 8N, f32, N n-tiles) += A (16 x D, rows r0.. of tile `ta`) ·
-// Bᵀ where B (8N x D) is rows 0.. of tile `tb`: both operands K-major.
-template <int D, int N>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const bf16* ta, int r0, const bf16* tb,
-                                        int lane) {
-#pragma unroll
-  for (int kp = 0; kp < D / 32; ++kp) {
-    uint32_t a0[4], a1[4];  // K-steps 2kp and 2kp + 1
-    ldmatrix_x4(a0, ta + swz<D>(r0 + lane % 16, 4 * kp + lane / 16));
-    ldmatrix_x4(a1, ta + swz<D>(r0 + lane % 16, 4 * kp + 2 + lane / 16));
-#pragma unroll
-    for (int nt = 0; nt < N; ++nt) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, tb + swz<D>(8 * nt + lane % 8, 4 * kp + lane / 8));
-      mma_bf16(acc[nt], a0, bf[0], bf[1]);
-      mma_bf16(acc[nt], a1, bf[2], bf[3]);
-    }
-  }
+// The lse in log2 units for P = exp2(s·scale·log2e − lse2); +inf (P = 0)
+// for a row that sees no key.
+__device__ __forceinline__ float lse2_from(float lse) {
+  return lse == -INFINITY ? INFINITY : lse * kLog2e;
 }
 
-// acc (16 x 8CT, f32) += A (16 x 16J, registers) · B where B is rows 0..16J
-// of tile `tb` at columns c0.. (read along its rows: ldmatrix.trans).
-template <int D, int J, int CT>
-__device__ __forceinline__ void mma_ab(float (*acc)[4], uint32_t (*a)[4], const bf16* tb,
-                                       int c0, int lane) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-#pragma unroll
-    for (int dp = 0; dp < CT / 2; ++dp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, tb + swz<D>(16 * j + 8 * ((lane / 8) % 2) + lane % 8,
-                                        c0 / 8 + 2 * dp + lane / 16));
-      mma_bf16(acc[2 * dp], a[j], bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], a[j], bf[2], bf[3]);
-    }
-  }
+// Whether some pair of a 64-row tile of queries q0.. and one of keys k0..
+// is visible.
+__device__ __forceinline__ bool any_visible(const BwdArgs& a, int q0, int k0) {
+  if (q0 >= a.S_q || k0 >= a.S_kv) return false;
+  const int q_first = q0 + a.q_offset;
+  const int q_last = min(q0 + kTile, a.S_q) - 1 + a.q_offset;
+  if (a.causal && k0 > q_last) return false;
+  return a.window <= 0 || min(k0 + kTile, a.S_kv) - 1 > q_first - a.window;
 }
 
-// The accumulator fragment of a 16 x 16J tile as J A fragments in bf16.
-template <int J>
-__device__ __forceinline__ void to_a(uint32_t (*a)[4], float (*c)[4]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    a[j][0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
-    a[j][1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
-    a[j][2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-    a[j][3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
-  }
-}
+// One block of a bf16 pass.  dK/dV (kDQ false): the block's own tiles are
+// ROWS keys of K and V, the streamed ones 64-row query tiles of Q and dO
+// with their rows' lse and Δ, the accumulators dK (acc0) and dV (acc1).
+// dQ: the own tiles are ROWS rows of Q and dO (and their lse and Δ), the
+// streamed ones key tiles of K and V, the accumulator dQ.  Warp 0 issues
+// the copies (lane 0 the TMA loads, every lane the statistics' cp.async):
+// the own tiles and the first STAGES - 1 streamed tiles at the start, then
+// at each step the tile STAGES - 1 ahead, into the stage both warpgroups
+// released a step before.  Accumulator fragment of a 64 x N wgmma:
+// register j of thread (warp w, lane l) of a warpgroup holds row 16w + l/4
+// + 8·((j/2) % 2) and column 8·(j/4) + 2·(l % 4) + j % 2.
+template <int D, bool kDQ>
+__device__ __forceinline__ void bwd_pass(const CUtensorMap* r0, const CUtensorMap* r1,
+                                         const CUtensorMap* t0, const CUtensorMap* t1,
+                                         const BwdArgs& a, const MapDims& md) {
+  using T = Sm90<D>;
+  constexpr int S = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sR = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~static_cast<uintptr_t>(1023));
+  uint8_t* sT = sR + 2 * T::RW * T::TILE;  // [S][2] streamed tiles
+  float* sStatT = reinterpret_cast<float*>(sT + S * 2 * T::TILE);  // [S][2][64]
+  float* sStatR = sStatT + S * 2 * kTile;                          // [2][ROWS]
+  uint64_t* bar_res = reinterpret_cast<uint64_t*>(sStatR + 2 * T::ROWS);
+  uint64_t* bar_full = bar_res + 1;    // a stage's tiles (and statistics) landed
+  uint64_t* bar_empty = bar_full + S;  // both warpgroups are done with a stage
 
-// Accumulator fragment of an m16n8 product: register e of lane l holds row
-// l/4 + 8·(e/2) and column 2·(l % 4) + e % 2 of its n-tile.
-template <int D>
-__global__ void __launch_bounds__(Mma<D>::THREADS) dkdv_mma_kernel(BwdArgs a) {
-  using M = Mma<D>;
-  constexpr int BQ = M::BQ, DC = M::DC, NT = BQ / 8, CT = DC / 8;
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kKeys * D;
-  bf16* sQ = sV + kKeys * D;  // [2][BQ][D]
-  bf16* sO = sQ + 2 * BQ * D;  // dO, [2][BQ][D]
-  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * D);  // [2][BQ] lse, log2 units
-  float* sD = sL + 2 * BQ;                               // [2][BQ] Δ
-
-  const int k0 = blockIdx.x * kKeys;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int kw = warp % 4;          // keys k0 + 16kw ..
-  const int c0 = (warp / 4) * DC;   // accumulator columns c0 ..
-  const int key_lo = k0 + 16 * kw + lane / 4;  // this thread's keys: key_lo, key_lo + 8
-
-  load_rows<D>(sK, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh + k0 * a.k_ss,
-               a.k_ss, a.S_kv - k0, kKeys, tid, M::THREADS);
-  load_rows<D>(sV, static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh + k0 * a.v_ss,
-               a.v_ss, a.S_kv - k0, kKeys, tid, M::THREADS);
-  cp_async_commit();
-
-  const Span qs = queries_seeing(a, k0, kKeys);
-  const int qt0 = qs.begin / BQ;
-  const int nqt = qs.end > qs.begin ? (qs.end + BQ - 1) / BQ - qt0 : 0;
-  const int n = nqt * a.G;
-
-  auto issue = [&](int i) {  // step i: head kvh·G + i / nqt, query tile qt0 + i % nqt
-    if (i < n) {
-      const int h = kvh * a.G + i / nqt;
-      const int q0 = (qt0 + i % nqt) * BQ;
-      const int buf = i & 1;
-      load_rows<D>(sQ + buf * BQ * D,
-                   static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh + q0 * a.q_ss, a.q_ss,
-                   a.S_q - q0, BQ, tid, M::THREADS);
-      load_rows<D>(sO + buf * BQ * D,
-                   static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh + q0 * a.do_ss,
-                   a.do_ss, a.S_q - q0, BQ, tid, M::THREADS);
-      for (int r = tid; r < BQ; r += M::THREADS) {
-        const long long idx = (static_cast<long long>(b) * a.H + h) * a.S_q + q0 + r;
-        const bool ok = q0 + r < a.S_q;
-        sL[buf * BQ + r] = lse2_of(a, idx, ok);
-        sD[buf * BQ + r] = ok ? a.delta[idx] : 0.f;
-      }
-    }
-    cp_async_commit();
-  };
-  issue(0);
-
-  float dk[CT][4], dv[CT][4];
-#pragma unroll
-  for (int j = 0; j < CT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  const float sl2 = a.scale * kLog2e;
-
-  for (int i = 0; i < n; ++i) {
-    issue(i + 1);
-    cp_async_wait<1>();  // step i's tiles (and K, V) have landed
-    __syncthreads();
-    const int buf = i & 1;
-    const int q0 = (qt0 + i % nqt) * BQ;
-    const bf16* tQ = sQ + buf * BQ * D;
-    const bf16* tO = sO + buf * BQ * D;
-    const float* tL = sL + buf * BQ;
-    const float* tD = sD + buf * BQ;
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys x BQ queries.
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    mma_abt<D, NT>(st, sK, 16 * kw, tQ, lane);
-    mma_abt<D, NT>(dpt, sV, 16 * kw, tO, lane);
-
-    // P and dS on the fragments.
-    const bool edge = edge_tile(a, q0, BQ, k0, kKeys);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = 8 * nt + 2 * (lane % 4) + (e & 1);
-        float p = exp2f(fmaf(st[nt][e], sl2, -tL[qr]));
-        if (edge && !visible(a, q0 + qr, key_lo + 8 * (e >> 1))) p = 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - tD[qr]);
-      }
-    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-    to_a<BQ / 16>(pa, st);
-    to_a<BQ / 16>(dsa, dpt);
-
-    // dV += Pᵀ·dO and dK += dSᵀ·Q over this warp's columns.
-    mma_ab<D, BQ / 16, CT>(dv, pa, tO, c0, lane);
-    mma_ab<D, BQ / 16, CT>(dk, dsa, tQ, c0, lane);
-    __syncthreads();  // buffer `buf` is refilled by step i + 2's copies
-  }
-  cp_async_wait<0>();
-
-  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh;
-  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key_lo + 8 * r;
-    if (key < a.S_kv) {
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int col = c0 + 8 * j + 2 * (lane % 4);
-        *reinterpret_cast<__nv_bfloat162*>(dkb + key * a.dk_ss + col) =
-            __floats2bfloat162_rn(dk[j][2 * r] * a.scale, dk[j][2 * r + 1] * a.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvb + key * a.dv_ss + col) =
-            __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
-      }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(Mma<D>::THREADS) dq_mma_kernel(BwdArgs a) {
-  using M = Mma<D>;
-  constexpr int BK = M::BK, DC = M::DC, NT = BK / 8, CT = DC / 8;
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + kRows * D;  // dO
-  bf16* sK = sO + kRows * D;  // [2][BK][D]
-  bf16* sV = sK + 2 * BK * D;  // [2][BK][D]
-  float* sL = reinterpret_cast<float*>(sV + 2 * BK * D);  // [kRows] lse, log2 units
-  float* sD = sL + kRows;                                // [kRows] Δ
-
-  // Blocks of the last query rows (the most keys when causal) go first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // Block -> (own tile, head, batch): tile-major, heads fastest (a group's
+  // heads read the same K and V tiles at about the same time).  The tiles
+  // with the most work go first: under the causal mask the first key tiles
+  // (dK/dV) and the last query tiles (dQ); without it the band, if any,
+  // gives the other end the most.
+  const int per = a.B * a.H;
+  const int n_own = ((kDQ ? a.S_q : a.S_kv) + T::ROWS - 1) / T::ROWS;
+  const int ord = blockIdx.x / per;
+  const int b = (blockIdx.x % per) / a.H;
+  const int h = blockIdx.x % a.H;
+  const int own = ((a.causal != 0) != kDQ) ? ord : n_own - 1 - ord;
+  const int p0 = own * T::ROWS;  // first key (dK/dV) or query row (dQ) of the block
   const int kvh = h / a.G;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int rw = warp % 4;         // rows q0 + 16rw ..
-  const int c0 = (warp / 4) * DC;  // accumulator columns c0 ..
-  const int row_lo = 16 * rw + lane / 4;  // this thread's rows (in the block): row_lo, row_lo + 8
+  const Span span = kDQ ? keys_seen(a, p0, T::ROWS) : queries_seeing(a, p0, T::ROWS);
+  const int t_begin = span.begin / kTile;
+  const int n = span.end > span.begin ? (span.end + kTile - 1) / kTile - t_begin : 0;
 
-  load_rows<D>(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh + q0 * a.q_ss, a.q_ss,
-               a.S_q - q0, kRows, tid, M::THREADS);
-  load_rows<D>(sO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh + q0 * a.do_ss,
-               a.do_ss, a.S_q - q0, kRows, tid, M::THREADS);
-  for (int r = tid; r < kRows; r += M::THREADS) {
-    const long long idx = (static_cast<long long>(b) * a.H + h) * a.S_q + q0 + r;
-    const bool ok = q0 + r < a.S_q;
-    sL[r] = lse2_of(a, idx, ok);
-    sD[r] = ok ? a.delta[idx] : 0.f;
-  }
-  cp_async_commit();
-
-  const Span ks = keys_seen(a, q0, kRows);
-  const int t0 = ks.begin / BK;
-  const int n = ks.end > ks.begin ? (ks.end + BK - 1) / BK - t0 : 0;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  auto issue = [&](int i) {
-    if (i < n) {
-      const int k0 = (t0 + i) * BK;
-      const int buf = i & 1;
-      load_rows<D>(sK + buf * BK * D, kb + k0 * a.k_ss, a.k_ss, a.S_kv - k0, BK, tid, M::THREADS);
-      load_rows<D>(sV + buf * BK * D, vb + k0 * a.v_ss, a.v_ss, a.S_kv - k0, BK, tid, M::THREADS);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, kDQ ? 33 : 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&bar_full[s], kDQ ? 1 : 33);
+      mbar_init(&bar_empty[s], 8);
     }
-    cp_async_commit();
-  };
-  issue(0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float dq[CT][4];
-#pragma unroll
-  for (int j = 0; j < CT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  const int r_head = kDQ ? h : kvh;
+  const int t_head = kDQ ? kvh : h;
+  // Streamed tile j into its stage, with (dK/dV) its rows' statistics.
+  auto issue = [&](int j) {
+    const int st = j % S;
+    const int p = (t_begin + j) * kTile;
+    if (!kDQ) {
+      load_stats(a, sStatT + st * 2 * kTile, b, h, p, kTile, lane);
+      cp_async_arrive(&bar_full[st]);
+    }
+    if (lane == 0) {
+      uint8_t* dst = sT + st * 2 * T::TILE;
+      mbar_expect_tx(&bar_full[st], 2 * T::TILE);
+      for (int ch = 0; ch < T::NCH; ++ch) {
+        tma_load(dst + ch * kTile * T::SWZ, t0, md.t0, &bar_full[st], ch * T::BOXC, t_head, p, b);
+        tma_load(dst + T::TILE + ch * kTile * T::SWZ, t1, md.t1, &bar_full[st], ch * T::BOXC,
+                 t_head, p, b);
+      }
+    }
+  };
+  if (warp == 0) {
+    if (kDQ) {
+      load_stats(a, sStatR, b, h, p0, T::ROWS, lane);
+      cp_async_arrive(bar_res);
+    }
+    if (lane == 0) {
+      mbar_expect_tx(bar_res, 2 * T::RW * T::TILE);
+      for (int rg = 0; rg < T::RW; ++rg)
+        for (int ch = 0; ch < T::NCH; ++ch) {
+          const int off = rg * T::TILE + ch * kTile * T::SWZ;
+          tma_load(sR + off, r0, md.r0, bar_res, ch * T::BOXC, r_head, p0 + rg * kTile, b);
+          tma_load(sR + T::RW * T::TILE + off, r1, md.r1, bar_res, ch * T::BOXC, r_head,
+                   p0 + rg * kTile, b);
+        }
+    }
+    for (int j = 0; j < min(S - 1, n); ++j) issue(j);
+  }
+
+  // Consumer warpgroup wg: rows p0 + rg·64 .. of the block, accumulator
+  // columns cg·DC ...
+  constexpr int NA = T::DC / 2;  // accumulator registers a thread, per product
+  const int wg = warp / 4;
+  const int rg = wg / T::CW;
+  const int cg = wg % T::CW;
+  const int w = warp % 4;
+  const int r_lo = 16 * w + lane / 4;  // this thread's fragment rows: r_lo, r_lo + 8
+  const int c_lane = 2 * (lane % 4);
+  const int row0 = p0 + rg * kTile;     // this warpgroup's first own row
   const float sl2 = a.scale * kLog2e;
+  // This warpgroup's columns of an MN-major streamed tile: DC / BOXC boxes in.
+  const uint32_t col_off = (cg * T::DC / T::BOXC) * kTile * T::SWZ;
+
+  float acc0[NA], acc1[kDQ ? 1 : NA];  // dK and dV, or dQ
+#pragma unroll
+  for (int j = 0; j < NA; ++j) acc0[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < (kDQ ? 1 : NA); ++j) acc1[j] = 0.f;
+  const uint64_t dr0 = make_desc(sR + rg * T::TILE, 16, 8 * T::SWZ, T::LAYOUT);
+  const uint64_t dr1 = make_desc(sR + (T::RW + rg) * T::TILE, 16, 8 * T::SWZ, T::LAYOUT);
+  mbar_wait(bar_res, 0);
+  float row_l2[2] = {0.f, 0.f}, row_dt[2] = {0.f, 0.f};  // dQ: this thread's rows
+  if (kDQ) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_l2[r] = lse2_from(sStatR[rg * kTile + r_lo + 8 * r]);
+      row_dt[r] = sStatR[T::ROWS + rg * kTile + r_lo + 8 * r];
+    }
+  }
 
   for (int i = 0; i < n; ++i) {
-    issue(i + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const int buf = i & 1;
-    const int k0 = (t0 + i) * BK;
-    const bf16* tK = sK + buf * BK * D;
-    const bf16* tV = sV + buf * BK * D;
+    const int st = i % S;
+    const int p = (t_begin + i) * kTile;
+    const int q0 = kDQ ? row0 : p;
+    const int k0 = kDQ ? p : row0;
+    // Warp 0 refills the stage that step i - 1 used with tile i + S - 1.
+    if (warp == 0 && i + S - 1 < n) {
+      const int j = i + S - 1;
+      if (j >= S) mbar_wait(&bar_empty[j % S], (j / S - 1) & 1);
+      issue(j);
+    }
+    mbar_wait(&bar_full[st], (i / S) & 1);
+    if (any_visible(a, q0, k0)) {
+      const uint8_t* tt = sT + st * 2 * T::TILE;
+      const float* stat = sStatT + st * 2 * kTile;
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows x BK keys.
-    float s[NT][4], dp[NT][4];
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (S = Q·Kᵀ and dP = dO·Vᵀ): 64 x 64, f32.
+      float s[32], dp[32];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+      const uint64_t dt0 = make_desc(tt, 16, 8 * T::SWZ, T::LAYOUT);
+      const uint64_t dt1 = make_desc(tt + T::TILE, 16, 8 * T::SWZ, T::LAYOUT);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D, NT>(s, sQ, 16 * rw, tK, lane);
-    mma_abt<D, NT>(dp, sO, 16 * rw, tV, lane);
-
-    const bool edge = edge_tile(a, q0, kRows, k0, BK);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row_lo + 8 * (e >> 1);
-        float p = exp2f(fmaf(s[nt][e], sl2, -sL[r]));
-        if (edge && !visible(a, q0 + r, k0 + 8 * nt + 2 * (lane % 4) + (e & 1))) p = 0.f;
-        dp[nt][e] = p * (dp[nt][e] - sD[r]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int e = kk * 16;
+        const uint32_t off = ((e / T::BOXC) * kTile * T::SWZ + (e % T::BOXC) * 2) >> 4;
+        wgmma_ss_n64(s, dr0 + off, dt0 + off, kk > 0);
       }
-    uint32_t dsa[BK / 16][4];
-    to_a<BK / 16>(dsa, dp);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int e = kk * 16;
+        const uint32_t off = ((e / T::BOXC) * kTile * T::SWZ + (e % T::BOXC) * 2) >> 4;
+        wgmma_ss_n64(dp, dr1 + off, dt1 + off, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int j = 0; j < 32; ++j) fence_reg(s[j]);
 
-    // dQ += dS·K over this warp's columns.
-    mma_ab<D, BK / 16, CT>(dq, dsa, tK, c0, lane);
-    __syncthreads();
+      // P on the fragment, while dP runs: rows are keys and columns query
+      // rows (dK/dV), or the other way round (dQ).
+      const bool edge = edge_tile(a, q0, kTile, k0, kTile);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int row = r_lo + 8 * ((j / 2) % 2);
+        const int col = 8 * (j / 4) + c_lane + j % 2;
+        const float l2 = kDQ ? row_l2[(j / 2) % 2] : lse2_from(stat[col]);
+        float pv = exp2f(fmaf(s[j], sl2, -l2));
+        if (edge && !visible(a, q0 + (kDQ ? row : col), k0 + (kDQ ? col : row))) pv = 0.f;
+        s[j] = pv;
+      }
+      uint32_t pa[4][4], da[4][4];  // P (dK/dV only) and dS as A fragments
+      if (!kDQ) to_a(pa, s);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < 32; ++j) fence_reg(dp[j]);
+
+      // dS = P ∘ (dP − Δ).
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float dt = kDQ ? row_dt[(j / 2) % 2] : stat[kTile + 8 * (j / 4) + c_lane + j % 2];
+        s[j] *= dp[j] - dt;
+      }
+      to_a(da, s);
+      // dV += Pᵀ·dO and dK += dSᵀ·Q (dQ += dS·K), with dO, Q (K) read
+      // MN-major from the streamed tiles.
+      const uint64_t m0 = make_desc(tt, kTile * T::SWZ, 8 * T::SWZ, T::LAYOUT) + (col_off >> 4);
+      const uint64_t m1 =
+          make_desc(tt + T::TILE, kTile * T::SWZ, 8 * T::SWZ, T::LAYOUT) + (col_off >> 4);
+      wgmma_fence();
+      if (!kDQ) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) wgmma_rs<T::DC>(acc1, pa[t], m1 + ((t * 16 * T::SWZ) >> 4));
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) wgmma_rs<T::DC>(acc0, da[t], m0 + ((t * 16 * T::SWZ) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NA; ++j) fence_reg(acc0[j]);
+      if (!kDQ) {
+#pragma unroll
+        for (int j = 0; j < NA; ++j) fence_reg(acc1[j]);
+      }
+      if (!kDQ) keep(pa);
+      keep(da);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bar_empty[st]);
   }
-  cp_async_wait<0>();
 
-  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+  // Epilogue, through the outputs' strides: dK (times the scale) and dV
+  // in bf16, or at G > 1 this head's dK and dV in float32 to the scratch;
+  // dQ times the scale.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + row_lo + 8 * r;
-    if (row < a.S_q) {
+    const int row = row0 + r_lo + 8 * r;
+    if (row >= (kDQ ? a.S_q : a.S_kv)) continue;
 #pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int col = c0 + 8 * j + 2 * (lane % 4);
-        *reinterpret_cast<__nv_bfloat162*>(dqb + row * a.dq_ss + col) =
-            __floats2bfloat162_rn(dq[j][2 * r] * a.scale, dq[j][2 * r + 1] * a.scale);
+    for (int j = 2 * r; j < NA; j += 4) {
+      const int col = cg * T::DC + 8 * (j / 4) + c_lane;
+      if (kDQ) {
+        bf16* dq = static_cast<bf16*>(a.dq) + b * a.dq_sb + row * a.dq_ss + h * a.dq_sh + col;
+        *reinterpret_cast<__nv_bfloat162*>(dq) =
+            __floats2bfloat162_rn(acc0[j] * a.scale, acc0[j + 1] * a.scale);
+      } else if (a.acc != nullptr) {
+        const long long plane = static_cast<long long>(a.B) * a.S_kv * a.H * D;
+        float* dk = a.acc + ((static_cast<long long>(b) * a.S_kv + row) * a.H + h) * D + col;
+        *reinterpret_cast<float2*>(dk) = make_float2(acc0[j], acc0[j + 1]);
+        *reinterpret_cast<float2*>(dk + plane) = make_float2(acc1[j], acc1[j + 1]);
+      } else {
+        bf16* dk = static_cast<bf16*>(a.dk) + b * a.dk_sb + row * a.dk_ss + kvh * a.dk_sh + col;
+        bf16* dv = static_cast<bf16*>(a.dv) + b * a.dv_sb + row * a.dv_ss + kvh * a.dv_sh + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk) =
+            __floats2bfloat162_rn(acc0[j] * a.scale, acc0[j + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv) = __floats2bfloat162_rn(acc1[j], acc1[j + 1]);
       }
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Sm90<D>::THREADS, 1)
+    dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap to,
+                     const BwdArgs a, const MapDims md) {
+  bwd_pass<D, false>(&tk, &tv, &tq, &to, a, md);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Sm90<D>::THREADS, 1)
+    dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap to,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const BwdArgs a, const MapDims md) {
+  bwd_pass<D, true>(&tq, &to, &tk, &tv, a, md);
+}
+
+// dk and dv (bf16) from the per-head float32 scratch: each group's G heads
+// summed in head order, dk times the scale.  One thread per 4 columns of a
+// (batch, key, kv head).
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads) dkdv_sum_kernel(BwdArgs a, int D) {
+  const int per_row = a.KV * D / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (i >= static_cast<long long>(a.B) * a.S_kv * per_row) return;
+  const long long row = i / per_row;  // b·S_kv + key
+  const int kvh = static_cast<int>(i % per_row) / (D / 4);
+  const int col = (static_cast<int>(i % per_row) % (D / 4)) * 4;
+  const long long plane = static_cast<long long>(a.B) * a.S_kv * a.H * D;
+  const float* src = a.acc + (row * a.H + static_cast<long long>(kvh) * a.G) * D + col;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int g = 0; g < a.G; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + g * D);
+    const float4 y = *reinterpret_cast<const float4*>(src + plane + g * D);
+    sk.x += x.x;
+    sk.y += x.y;
+    sk.z += x.z;
+    sk.w += x.w;
+    sv.x += y.x;
+    sv.y += y.y;
+    sv.z += y.z;
+    sv.w += y.w;
+  }
+  const int b = static_cast<int>(row / a.S_kv);
+  const int key = static_cast<int>(row % a.S_kv);
+  bf16* dk = static_cast<bf16*>(a.dk) + b * a.dk_sb + key * a.dk_ss + kvh * a.dk_sh + col;
+  bf16* dv = static_cast<bf16*>(a.dv) + b * a.dv_sb + key * a.dv_ss + kvh * a.dv_sh + col;
+  reinterpret_cast<__nv_bfloat162*>(dk)[0] = __floats2bfloat162_rn(sk.x * a.scale, sk.y * a.scale);
+  reinterpret_cast<__nv_bfloat162*>(dk)[1] = __floats2bfloat162_rn(sk.z * a.scale, sk.w * a.scale);
+  reinterpret_cast<__nv_bfloat162*>(dv)[0] = __floats2bfloat162_rn(sv.x, sv.y);
+  reinterpret_cast<__nv_bfloat162*>(dv)[1] = __floats2bfloat162_rn(sv.z, sv.w);
 }
 
 // ---------------------------------------------------------------------------
@@ -738,17 +843,68 @@ __global__ void __launch_bounds__(kFThreads) dq_fma_kernel(BwdArgs a) {
 // Host side
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, int smem, const BwdArgs& a,
-                       cudaStream_t stream) {
+// Error codes besides CUDA's (as flash_attention_sm90.cu's): the driver
+// entry point or a tensor map.
+constexpr int kErrNoEncode = -1;
+constexpr int kErrTensorMap = -2;
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_one(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t stream,
+                       Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_bwd(const BwdArgs& a, bool bf16_route, cudaStream_t stream) {
+int launch_sm90(const BwdArgs& a, int dkdv_blocks, int dq_blocks, cudaStream_t stream) {
+  using T = Sm90<D>;
+  if (encode_tiled() == nullptr) return kErrNoEncode;
+  CUtensorMap mq, mk, mv, mo;
+  int q_dims[3], k_dims[3], v_dims[3], o_dims[3];
+  if (!make_bshd_map(&mq, a.q, a.B, a.S_q, a.H, D, a.q_sb, a.q_ss, a.q_sh, T::BOXC, kTile,
+                     q_dims) ||
+      !make_bshd_map(&mk, a.k, a.B, a.S_kv, a.KV, D, a.k_sb, a.k_ss, a.k_sh, T::BOXC, kTile,
+                     k_dims) ||
+      !make_bshd_map(&mv, a.v, a.B, a.S_kv, a.KV, D, a.v_sb, a.v_ss, a.v_sh, T::BOXC, kTile,
+                     v_dims) ||
+      !make_bshd_map(&mo, a.dout, a.B, a.S_q, a.H, D, a.do_sb, a.do_ss, a.do_sh, T::BOXC, kTile,
+                     o_dims))
+    return kErrTensorMap;
+  MapDims kv_res{}, q_res{};
+  for (int i = 0; i < 3; ++i) {
+    kv_res.r0[i] = q_res.t0[i] = k_dims[i];
+    kv_res.r1[i] = q_res.t1[i] = v_dims[i];
+    kv_res.t0[i] = q_res.r0[i] = q_dims[i];
+    kv_res.t1[i] = q_res.r1[i] = o_dims[i];
+  }
+  cudaError_t err = launch_one(dkdv_sm90_kernel<D>, dim3(dkdv_blocks), T::THREADS, T::SMEM,
+                               stream, mk, mv, mq, mo, a, kv_res);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.acc != nullptr) {
+    const long long n = static_cast<long long>(a.B) * a.S_kv * a.KV * D / 4;
+    const dim3 grid(static_cast<unsigned>((n + kSumThreads - 1) / kSumThreads));
+    err = launch_one(dkdv_sum_kernel, grid, kSumThreads, 0, stream, a, D);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(launch_one(dq_sm90_kernel<D>, dim3(dq_blocks), T::THREADS, T::SMEM,
+                                     stream, mq, mo, mk, mv, a, q_res));
+}
+
+int ceil_div(int x, int y) { return (x + y - 1) / y; }
+
+template <int D>
+int launch_bwd(const BwdArgs& a, bool bf16_route, int dkdv_blocks, int dq_blocks,
+               cudaStream_t stream) {
+  // The caller's plan (flash_attention.py::bwd_plan) must be the grids
+  // below, and bring the dK/dV scratch exactly where G > 1 on the bf16 route.
+  const int tile = bf16_route ? Sm90<D>::ROWS : kFT;
+  const int per = bf16_route ? a.B * a.H : a.B * a.KV;
+  if (dkdv_blocks != ceil_div(a.S_kv, tile) * per ||
+      dq_blocks != ceil_div(a.S_q, tile) * a.B * a.H ||
+      (a.acc != nullptr) != (bf16_route && a.G > 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(a.B) * a.H * a.S_q;
   const dim3 dgrid(static_cast<unsigned>((rows + kDeltaWarps - 1) / kDeltaWarps));
   if (bf16_route) {
@@ -757,30 +913,28 @@ cudaError_t launch_bwd(const BwdArgs& a, bool bf16_route, cudaStream_t stream) {
     delta_kernel<float><<<dgrid, kDeltaWarps * 32, 0, stream>>>(a, D);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (bf16_route) {
-    using M = Mma<D>;
-    err = launch_one(dkdv_mma_kernel<D>, dim3((a.S_kv + kKeys - 1) / kKeys, a.KV, a.B),
-                     M::THREADS, M::DKDV_SMEM, a, stream);
-    if (err != cudaSuccess) return err;
-    return launch_one(dq_mma_kernel<D>, dim3((a.S_q + kRows - 1) / kRows, a.H, a.B), M::THREADS,
-                      M::DQ_SMEM, a, stream);
-  }
-  err = launch_one(dkdv_fma_kernel<D>, dim3((a.S_kv + kFT - 1) / kFT, a.KV, a.B), kFThreads,
-                   fma_smem_bytes<D>(), a, stream);
-  if (err != cudaSuccess) return err;
-  return launch_one(dq_fma_kernel<D>, dim3((a.S_q + kFT - 1) / kFT, a.H, a.B), kFThreads,
-                    fma_smem_bytes<D>(), a, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bf16_route) return launch_sm90<D>(a, dkdv_blocks, dq_blocks, stream);
+  err = launch_one(dkdv_fma_kernel<D>, dim3(ceil_div(a.S_kv, kFT), a.KV, a.B), kFThreads,
+                   fma_smem_bytes<D>(), stream, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_one(dq_fma_kernel<D>, dim3(ceil_div(a.S_q, kFT), a.H, a.B),
+                                     kFThreads, fma_smem_bytes<D>(), stream, a));
 }
 
 }  // namespace
 }  // namespace repro
 
 // dtype 0 = float32 (FMA), 1 = bfloat16 (tensor cores), for every tensor
-// but lse and delta (float32, (B, H, S_q) contiguous).  q, o, dout, dq
-// (B,S_q,H,D); k, v, dk, dv (B,S_kv,KV,D); strides in elements, last
-// dimension contiguous, rows 16-byte aligned.  `delta` is scratch of the
-// lse's shape.  Returns the CUDA error of the launches (0 on success).
+// but lse, delta and acc (float32; lse and delta (B, H, S_q) contiguous).
+// q, o, dout, dq (B,S_q,H,D); k, v, dk, dv (B,S_kv,KV,D); strides in
+// elements, last dimension contiguous, rows 16-byte aligned.  `delta` is
+// scratch of the lse's shape; `acc` the bf16 route's (2, B, S_kv, H, D)
+// contiguous scratch where H > KV, else null.  dkdv_blocks and dq_blocks
+// are the two passes' block counts (flash_attention.py::bwd_plan).  Returns
+// the CUDA error of the launches (0 on success), cudaErrorInvalidValue if
+// the plan does not match, -1 if the driver's cuTensorMapEncodeTiled is not
+// available, -2 if it refuses a tensor map.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype, int B, int S_q,
@@ -789,20 +943,23 @@ extern "C" int repro_flash_attention_bwd(
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, long long do_sb,
     long long do_ss, long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh,
     long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
-    long long dv_sh, int causal, int window, int q_offset, float scale, void* stream) {
-  const repro::BwdArgs a{q,     k,     v,     o,     dout,  lse,   delta, dq,    dk,
-                         dv,    B,     S_q,   S_kv,  H,     KV,    H / KV, q_sb, q_ss,
-                         q_sh,  k_sb,  k_ss,  k_sh,  v_sb,  v_ss,  v_sh,  o_sb,  o_ss,
-                         o_sh,  do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss,
-                         dk_sh, dv_sb, dv_ss, dv_sh, causal, window, q_offset, scale};
+    long long dv_sh, int causal, int window, int q_offset, float scale, void* acc,
+    int dkdv_blocks, int dq_blocks, void* stream) {
+  float* scratch = static_cast<float*>(acc);
+  const repro::BwdArgs a{q,     k,      v,     o,     dout,  lse,   delta,  scratch,
+                         dq,    dk,     dv,    B,     S_q,   S_kv,  H,      KV,
+                         H / KV, q_sb,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,   v_sb,
+                         v_ss,  v_sh,   o_sb,  o_ss,  o_sh,  do_sb, do_ss,  do_sh,
+                         dq_sb, dq_ss,  dq_sh, dk_sb, dk_ss, dk_sh, dv_sb,  dv_ss,
+                         dv_sh, causal, window, q_offset, scale};
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf = dtype == 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return static_cast<int>(repro::launch_bwd<32>(a, bf, st));
-    case 64: return static_cast<int>(repro::launch_bwd<64>(a, bf, st));
-    case 128: return static_cast<int>(repro::launch_bwd<128>(a, bf, st));
-    case 256: return static_cast<int>(repro::launch_bwd<256>(a, bf, st));
+    case 32: return repro::launch_bwd<32>(a, bf, dkdv_blocks, dq_blocks, st);
+    case 64: return repro::launch_bwd<64>(a, bf, dkdv_blocks, dq_blocks, st);
+    case 128: return repro::launch_bwd<128>(a, bf, dkdv_blocks, dq_blocks, st);
+    case 256: return repro::launch_bwd<256>(a, bf, dkdv_blocks, dq_blocks, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,8 +6,8 @@ backward, ``csrc/flash_attention_bwd.cu`` (the Pallas kernel has none:
 ``jax.grad`` differentiates the plain route).
 
 The route is chosen by dtype before the launch (``route``): bfloat16 runs
-on the tensor cores (``wgmma`` fed by TMA, ``flash_attention_sm90.cu``; the
-backward on ``mma.sync``); float32 runs on the FMA pipes
+on the tensor cores (``wgmma`` fed by TMA, ``flash_attention_sm90.cu``, and
+so does the backward); float32 runs on the FMA pipes
 (``flash_attention.cu`` and the backward's float32 kernels), since a TF32
 product would miss float32's tolerance.  Each route launches its kernel or
 raises; neither falls back to the other or to the plain version.
@@ -35,6 +35,7 @@ local calls reach ``FlashAttentionFn`` as any other call does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -59,7 +60,8 @@ _ARGTYPES = {
     "fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]),
     "bwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 24
-            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]),
 }
 
 launches = 0
@@ -112,6 +114,129 @@ def cost_backward(b: int, s_q: int, s_kv: int, h: int, kv: int, d: int, *, causa
     n = pairs(s_q, s_kv, causal=causal, window=window, q_offset=q_offset)
     return Cost({dtype: 8.0 * b * h * d * n},
                 (4 * b * s_q * h + 4 * b * s_kv * kv) * d * dtype.itemsize + 4 * b * h * s_q)
+
+
+# The backward's tiles (keys or query rows): on the bf16 route a block owns
+# 128 rows (64 at D = 256) and streams tiles of 64; on the float32 route 32
+# and 32.  The Δ pass's rows per block; the sum pass's threads.
+BWD_STREAM_TILE = {"wgmma": 64, "fma": 32}
+_DELTA_ROWS = 8
+_SUM_THREADS = 256
+
+
+def bwd_own_tile(route_: str, d: int) -> int:
+    """Rows (keys of a dK/dV block, query rows of a dQ block) a backward
+    block owns."""
+    return 32 if route_ == "fma" else 64 if d == 256 else 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One backward call's launches, as ``csrc/flash_attention_bwd.cu`` makes
+    them: ``kernels`` in launch order with their ``grids`` (blocks, x-major:
+    the bf16 passes are 1-D), and the float32 scratch the bf16 route's dK/dV
+    pass writes each query head's dK and dV to where G > 1 (``None`` at G =
+    1 and on the float32 route, whose dK/dV blocks loop over the group)."""
+    route: str
+    b: int
+    s_q: int
+    s_kv: int
+    h: int
+    kv: int
+    d: int
+    causal: bool
+    window: int
+    q_offset: int
+    kernels: tuple[str, ...]
+    grids: tuple[tuple[int, int, int], ...]
+    scratch_shape: tuple[int, ...] | None
+
+    @property
+    def own_tile(self) -> int:
+        return bwd_own_tile(self.route, self.d)
+
+    @property
+    def stream_tile(self) -> int:
+        return BWD_STREAM_TILE[self.route]
+
+    @property
+    def dkdv_blocks(self) -> int:
+        return math.prod(self.grids[1])
+
+    @property
+    def dq_blocks(self) -> int:
+        return math.prod(self.grids[-1])
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 0 if self.scratch_shape is None else 4 * math.prod(self.scratch_shape)
+
+
+def bwd_plan(b: int, s_q: int, s_kv: int, h: int, kv: int, d: int, *, causal: bool,
+             window: int, q_offset: int, dtype: torch.dtype) -> BwdPlan:
+    """The launches of one ``flash_attention_bwd`` call: the Δ pass; the
+    dK/dV pass, on the bf16 route one block per (key tile, query head,
+    batch row) and, where G = H / KV > 1, the pass that sums each group's G
+    heads of its scratch in head order; the dQ pass, one block per (query
+    tile, head, batch row), each tile ``bwd_own_tile`` rows.  On the
+    float32 route the dK/dV pass has one block per (key tile, kv head,
+    batch row)."""
+    r = route(dtype)
+    t = bwd_own_tile(r, d)
+    n_k, n_q = -(-s_kv // t), -(-s_q // t)
+    delta = (-(-b * h * s_q // _DELTA_ROWS), 1, 1)
+    if r == "fma":
+        kernels = ("delta_kernel", "dkdv_fma_kernel", "dq_fma_kernel")
+        grids = (delta, (n_k, kv, b), (n_q, h, b))
+        scratch = None
+    else:
+        grouped = h > kv
+        sum_pass = ("dkdv_sum_kernel",) if grouped else ()
+        kernels = ("delta_kernel", "dkdv_sm90_kernel", *sum_pass, "dq_sm90_kernel")
+        sums = ((-(-b * s_kv * kv * d // 4 // _SUM_THREADS), 1, 1),) if grouped else ()
+        grids = (delta, (n_k * b * h, 1, 1)) + sums + ((n_q * b * h, 1, 1),)
+        scratch = (2, b, s_kv, h, d) if grouped else None
+    return BwdPlan(r, b, s_q, s_kv, h, kv, d, causal, window, q_offset, kernels, grids, scratch)
+
+
+def _streamed_tiles(plan: BwdPlan, own: np.ndarray, dq: bool) -> tuple[np.ndarray, np.ndarray]:
+    """The first streamed tile and the number of them for blocks whose own
+    tile is ``own``: the query tiles that see keys own·T .. own·T + T − 1
+    (dK/dV) or the key tiles rows own·T .. see (dQ), T the own tile's rows,
+    as the kernel's ``queries_seeing`` and ``keys_seen`` bound its loop."""
+    t, off = plan.own_tile, plan.q_offset
+    p0 = own * t
+    if dq:
+        q_last = np.minimum(p0 + t, plan.s_q) - 1 + off
+        end = np.minimum(plan.s_kv, q_last + 1) if plan.causal else np.full_like(p0, plan.s_kv)
+        begin = np.maximum(0, p0 + off - plan.window + 1) if plan.window > 0 else np.zeros_like(p0)
+    else:
+        k_last = np.minimum(p0 + t, plan.s_kv) - 1
+        begin = np.maximum(0, p0 - off) if plan.causal else np.zeros_like(p0)
+        end = np.full_like(p0, plan.s_q)
+        if plan.window > 0:
+            end = np.minimum(end, np.maximum(0, k_last + plan.window - off))
+    u = plan.stream_tile
+    first = begin // u
+    return first, np.where(end > begin, -(-end // u) - first, 0)
+
+
+def bwd_blocks(plan: BwdPlan, dq: bool) -> np.ndarray:
+    """The bf16 route's blocks of the dK/dV pass (``dq`` False) or the dQ
+    pass, in launch order: rows (own tile, query head, batch row, streamed
+    tiles), decoded from the block index as the kernel decodes it (tile
+    major, heads fastest; the tiles with the most streamed tiles first:
+    under the causal mask the first key tiles and the last query tiles,
+    else the other way round)."""
+    if plan.route != "wgmma":
+        raise ValueError("bwd_blocks: the float32 route's grids are 3-D (tile, head, batch)")
+    n_own = -(-(plan.s_q if dq else plan.s_kv) // plan.own_tile)
+    idx = np.arange(n_own * plan.b * plan.h, dtype=np.int64)
+    per = plan.b * plan.h
+    ord_, b, h = idx // per, (idx % per) // plan.h, idx % plan.h
+    own = ord_ if plan.causal != dq else n_own - 1 - ord_
+    _, steps = _streamed_tiles(plan, own, dq)
+    return np.stack([own, h, b, steps], axis=1)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -319,16 +444,30 @@ def _check_bwd(q, k, v, out, lse, dout, window: int, q_offset: int, device_type:
                          f"{q.device}")
 
 
+def _plan_of(q, k, *, causal: bool, window: int, q_offset: int) -> BwdPlan:
+    b, s_q, h, d = q.shape
+    return bwd_plan(b, s_q, k.shape[1], h, k.shape[2], d, causal=causal, window=window,
+                    q_offset=q_offset, dtype=q.dtype)
+
+
+def _scratch(plan: BwdPlan, lse) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The Δ scratch and the plan's dK/dV scratch, live beside the
+    gradients during the launch."""
+    acc = (None if plan.scratch_shape is None else
+           torch.empty(plan.scratch_shape, dtype=torch.float32, device=lse.device))
+    return torch.empty_like(lse), acc
+
+
 def _meta_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int, q_offset: int):
-    """The backward's meta route: dq, dk, dv (and the Δ scratch) allocated,
-    and ``cost_backward`` counted as one ``flash_attention_bwd`` call."""
+    """The backward's meta route: dq, dk, dv and the scratch allocated, and
+    ``cost_backward`` counted as one ``flash_attention_bwd`` call."""
     _check_bwd(q, k, v, out, lse, dout, window, q_offset, "meta")
     b, s_q, h, d = q.shape
     count_meta_call("flash_attention_bwd", cost_backward(
         b, s_q, k.shape[1], h, k.shape[2], d, causal=causal, window=window, q_offset=q_offset,
         dtype=q.dtype))
     grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
-    torch.empty_like(lse)  # the Δ scratch, live beside the gradients during the launch
+    _scratch(_plan_of(q, k, causal=causal, window=window, q_offset=q_offset), lse)
     return grads
 
 
@@ -337,20 +476,25 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
     """dq, dk, dv (in the inputs' dtype) of ``flash_attention(q, k, v)``
     from its output ``out``, its float32 log-sum-exp ``lse`` (B, H, S_q)
     and the output's cotangent ``dout``: one call of the backward kernel
-    (a Δ pass, the dK/dV pass, the dQ pass) for ``route(q.dtype)``.  Raises
-    on what the kernel does not take."""
+    for ``route(q.dtype)``, its launches as ``bwd_plan`` lays them out (the
+    Δ pass, the dK/dV pass, on the bf16 route at G > 1 the sum of its
+    per-head scratch, the dQ pass).  Raises on what the kernel does not
+    take."""
     _check_bwd(q, k, v, out, lse, dout, window, q_offset, "cuda")
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]
+    plan = _plan_of(q, k, causal=causal, window=window, q_offset=q_offset)
     grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
-    delta = torch.empty_like(lse)
+    delta, acc = _scratch(plan, lse)
     with torch.cuda.device(q.device):
         err = _kernel("bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
             DTYPE_CODES[q.dtype], b, s_q, s_kv, h, kv, d,
             *(st for t in (q, k, v, out, dout, *grads) for st in t.stride()[:3]),
-            int(causal), int(window), int(q_offset), ref.softmax_scale(d), stream_handle(q),
+            int(causal), int(window), int(q_offset), ref.softmax_scale(d),
+            None if acc is None else acc.data_ptr(), plan.dkdv_blocks, plan.dq_blocks,
+            stream_handle(q),
         )
     raise_on_error("flash_attention_bwd", err)
     global bwd_launches

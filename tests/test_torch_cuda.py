@@ -952,6 +952,61 @@ def test_flash_gradients_through_the_kernel(case, dtype, card):
     assert all(g <= t for g, t in zip(gaps, tols)), (gaps, tols)
 
 
+# minitron-4b's group of 3 (24 q / 8 kv heads), which divides no tile; S_q
+# != S_kv at a q_offset, with and without a window; qwen2-vl-2b's group of 6
+# over ragged lengths.
+FLASH_GRAD_ODD_CASES = [
+    (1, 200, 200, 24, 8, 128, True, 0, 0),
+    (2, 96, 96, 3, 1, 64, True, 0, 0),
+    (1, 100, 260, 12, 4, 128, True, 0, 160),
+    (2, 70, 190, 6, 2, 64, True, 48, 120),
+    (1, 150, 333, 12, 2, 128, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_GRAD_ODD_CASES)
+def test_flash_backward_kernel_at_odd_groups_and_offsets(case, dtype, card):
+    """``test_flash_backward_kernel_matches_plain``'s checks, two calls bit
+    for bit included, at groups and offsets that no tile divides."""
+    test_flash_backward_kernel_matches_plain(case, dtype, card)
+
+
+def test_flash_backward_is_its_documented_device_kernels(card):
+    """Each backward call is ``fa.bwd_plan``'s device kernels in their order
+    (Δ, dK/dV, at G > 1 on the bf16 route the sum over the group, dQ), in
+    both dtypes, at G = 3 and G = 1: the last three of four calls in one
+    profiler session (the first call is not counted, as in
+    ``test_ssd_backward_is_its_documented_device_kernels``); a session that
+    does not show the pattern is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 3
+    for dtype in DTYPES:
+        for case in ((1, 200, 200, 24, 8, 128, True, 0, 0), (2, 130, 130, 4, 4, 64, True, 0, 0)):
+            qkv, dout, kw = _flash_grad_inputs(case, dtype, card)
+            out, lse = fa._launch(*qkv, lse=True, **kw)
+            b, s_q, s_kv, h, kv, d = case[:6]
+            order = fa.bwd_plan(b, s_q, s_kv, h, kv, d, dtype=dtype, **kw).kernels
+            assert len(order) == (4 if dtype == torch.bfloat16 and h > kv else 3)
+            fa.flash_attention_bwd(*qkv, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(1 + calls):
+                        fa.flash_attention_bwd(*qkv, out, lse, dout, **kw)
+                    torch.cuda.synchronize()
+                events = sorted((e for e in prof.events()
+                                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                                key=lambda e: e.time_range.start)
+                names = [e.name for e in events]
+                assert len(names) <= (1 + calls) * len(order), names
+                kinds = [next((k for k in order if k in nm), nm) for nm in names]
+                if kinds[-calls * len(order):] == list(order) * calls:
+                    break
+            assert kinds[-calls * len(order):] == list(order) * calls, names
+
+
 def test_flash_backward_refuses_what_the_kernel_does_not_take(card):
     q = _randn(card, (1, 64, 4, 64), torch.bfloat16)
     k = _randn(card, (1, 64, 2, 64), torch.bfloat16)

@@ -148,3 +148,144 @@ def test_cost_backward_is_twice_the_forwards_products():
     assert bwd.bytes == 4 * q + 4 * kv + lse   # q, out, dout, dq; k, v, dk, dv
     assert fa.cost(2, 256, 256, 12, 2, 128, dtype=torch.bfloat16, lse=True, **kw).bytes == (
         fwd.bytes + lse)
+
+
+# -- the backward kernel's launch plan (``fa.bwd_plan``) ------------------------
+
+PLAN_MASKS = {"causal": dict(causal=True, window=0), "window": dict(causal=True, window=96),
+              "full": dict(causal=False, window=0)}
+# G = H / KV of 1 (seamless), 3 (minitron-4b), 6 (qwen2-vl-2b), 16
+# (recurrentgemma-9b); S_q, S_kv and q_offset not multiples of the tile.
+PLAN_SHAPES = [(2, 200, 200, 4, 4, 64, 0), (1, 300, 300, 24, 8, 128, 0),
+               (2, 130, 257, 12, 2, 128, 127), (1, 333, 333, 16, 1, 256, 0)]
+PLAN_IDS = [f"G{h // kv}" for _, _, _, h, kv, _, _ in PLAN_SHAPES]
+
+
+def _plan(shape, mask, dtype=torch.bfloat16):
+    b, s_q, s_kv, h, kv, d, off = shape
+    return fa.bwd_plan(b, s_q, s_kv, h, kv, d, q_offset=off, dtype=dtype, **PLAN_MASKS[mask])
+
+
+def _visible(plan) -> np.ndarray:
+    """(S_q, S_kv): the pairs ``ref.attention_mask`` lets through."""
+    q = np.arange(plan.s_q)[:, None] + plan.q_offset
+    k = np.arange(plan.s_kv)[None, :]
+    ok = np.ones((plan.s_q, plan.s_kv), bool)
+    if plan.causal:
+        ok &= k <= q
+    if plan.window > 0:
+        ok &= k > q - plan.window
+    return ok
+
+
+@pytest.mark.parametrize("mask", PLAN_MASKS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_bwd_plan_covers_every_tile_head_and_batch_once(shape, mask):
+    """The bf16 route's dK/dV pass has one block per (key tile, query head,
+    batch row) and the dQ pass one per (query tile, head, batch row), each
+    exactly once, a tile 128 rows (64 at D = 256), and the grids are what
+    the kernel's host side checks."""
+    plan = _plan(shape, mask)
+    b, s_q, s_kv, h, kv, d, _ = shape
+    own = 64 if d == 256 else 128
+    assert (plan.own_tile, plan.stream_tile) == (own, 64)
+    n_k, n_q = -(-s_kv // own), -(-s_q // own)
+    for dq, n_own in ((False, n_k), (True, n_q)):
+        blocks = fa.bwd_blocks(plan, dq)
+        assert len(blocks) == n_own * h * b
+        seen = {tuple(r) for r in blocks[:, :3]}
+        assert seen == {(t, hh, bb) for t in range(n_own) for hh in range(h) for bb in range(b)}
+    assert plan.dkdv_blocks == n_k * h * b and plan.dq_blocks == n_q * h * b
+    assert plan.grids[0] == (-(-b * h * s_q // 8), 1, 1)
+
+
+@pytest.mark.parametrize("mask", PLAN_MASKS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_bwd_plan_runs_the_blocks_with_the_most_work_first(shape, mask):
+    """Under the causal mask the first key tiles (dK/dV) and the last query
+    tiles (dQ) go first, so that without a window each pass's streamed
+    tiles per block never rise in launch order (a window's band gives the
+    tiles in the middle one tile more than those at the ends); a group's
+    heads of one tile are neighbours."""
+    plan = _plan(shape, mask)
+    n_k, n_q = -(-plan.s_kv // plan.own_tile), -(-plan.s_q // plan.own_tile)
+    for dq, n_own in ((False, n_k), (True, n_q)):
+        blocks = fa.bwd_blocks(plan, dq)
+        if plan.window == 0:
+            assert (np.diff(blocks[:, 3]) <= 0).all()
+        tiles = blocks[::plan.h * plan.b, 0]
+        assert list(tiles) == (list(range(n_own)) if plan.causal != dq
+                               else list(range(n_own))[::-1])
+        h = plan.h
+        assert (blocks[:h, 1] == np.arange(h)).all() and (blocks[:h, 2] == 0).all()
+
+
+@pytest.mark.parametrize("mask", PLAN_MASKS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_bwd_plan_streams_every_visible_pair(shape, mask):
+    """Every visible (query, key) pair lies in a streamed tile of the block
+    that owns its key (dK/dV) and of the block that owns its query row
+    (dQ), and each pass's blocks stream no tile without one."""
+    plan = _plan(shape, mask)
+    vis = _visible(plan)
+    t, u = plan.own_tile, plan.stream_tile
+    for dq in (False, True):
+        blocks = fa.bwd_blocks(plan, dq)
+        own = blocks[blocks[:, 1] + blocks[:, 2] == 0]  # head 0, batch 0: one block per tile
+        first, steps = fa._streamed_tiles(plan, own[:, 0], dq)
+        for tile, lo, n in zip(own[:, 0], first, steps):
+            mine = vis[tile * t:(tile + 1) * t] if dq else vis[:, tile * t:(tile + 1) * t].T
+            cols = np.flatnonzero(mine.any(axis=0))  # the other pass's rows it must see
+            covered = np.zeros(mine.shape[1], bool)
+            covered[lo * u:(lo + n) * u] = True
+            assert covered[cols].all()
+            tiles_used = {c // u for c in cols}
+            assert n == (len(range(min(tiles_used), max(tiles_used) + 1)) if cols.size else 0)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_bwd_plan_scratch_and_launches(shape):
+    """At G > 1 the bf16 route adds a float32 (2, B, S_kv, H, D) scratch
+    (each query head's dK and dV) and the pass that sums it; at G = 1 and
+    on the float32 route there is neither.  qwen2-vl-2b's 2 x 4096 carries
+    ~100 MB of it."""
+    b, s_q, s_kv, h, kv, d, off = shape
+    plan = _plan(shape, "causal")
+    grouped = h > kv
+    assert plan.kernels == ("delta_kernel", "dkdv_sm90_kernel",
+                            *(("dkdv_sum_kernel",) if grouped else ()), "dq_sm90_kernel")
+    assert plan.scratch_shape == ((2, b, s_kv, h, d) if grouped else None)
+    assert plan.scratch_bytes == (8 * b * s_kv * h * d if grouped else 0)
+    if grouped:
+        assert plan.grids[2] == (-(-b * s_kv * kv * d // 4 // 256), 1, 1)
+    f32 = _plan(shape, "causal", torch.float32)
+    assert f32.kernels == ("delta_kernel", "dkdv_fma_kernel", "dq_fma_kernel")
+    assert f32.grids[1:] == ((-(-s_kv // 32), kv, b), (-(-s_q // 32), h, b))
+    assert f32.scratch_shape is None and f32.scratch_bytes == 0
+    qwen = fa.bwd_plan(2, 4096, 4096, 12, 2, 128, causal=True, window=0, q_offset=0,
+                       dtype=torch.bfloat16)
+    assert qwen.scratch_bytes == 2 * 2 * 4096 * 12 * 128 * 4 == 100_663_296
+    assert (qwen.dkdv_blocks, qwen.dq_blocks) == (768, 768)
+    with pytest.raises(ValueError, match="float32 route"):
+        fa.bwd_blocks(f32, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_meta_backward_peak_counts_the_scratch(shape, dtype):
+    """One backward call on ``meta`` allocates what a launch does: its
+    counted peak is the arguments, dq, dk, dv, the Δ scratch and the plan's
+    dK/dV scratch, all live at once."""
+    from repro_torch.launch import dryrun
+
+    b, s_q, s_kv, h, kv, d, off = shape
+    kw = dict(causal=True, window=0, q_offset=off)
+    q, out, dout = (torch.empty((b, s_q, h, d), dtype=dtype, device="meta") for _ in range(3))
+    k, v = (torch.empty((b, s_kv, kv, d), dtype=dtype, device="meta") for _ in range(2))
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device="meta")
+    counter, grads, arg_bytes = dryrun.count(
+        lambda *args: fa._meta_bwd(*args, **kw), q, k, v, out, lse, dout)
+    plan = fa.bwd_plan(b, s_q, s_kv, h, kv, d, dtype=dtype, **kw)
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    assert counter.peak == arg_bytes + grad_bytes + lse.numel() * 4 + plan.scratch_bytes
+    assert counter.kernels == {"flash_attention_bwd": 1}
