@@ -441,14 +441,14 @@ def phase_build() -> None:
     bwd = {k: c.get("HGMMA", 0) for k, c in counts.items()
            if "dkdv_sm90_kernel" in k or "dq_sm90_kernel" in k}
     # The SSD backward's products in bf16: its chunk-state and gradient passes.
-    ssd_bwd = {k: c.get("HMMA", 0) for k, c in counts.items()
-               if ("ssd_bwd_states" in k or "ssd_bwd_grads" in k) and "bfloat16" in k}
+    ssd_bwd = {k: c.get("HGMMA", 0) for k, c in counts.items()
+               if "ssd_bwd_states_sm90_kernel" in k or "ssd_bwd_grads_sm90_kernel" in k}
     print(f"sass: {sum(c.get('HGMMA', 0) for c in counts.values())} HGMMA instructions, "
           f"{sum(flash.values())} in {len(flash)} bf16 flash kernels; bf16 SSD kernels "
           f"(HGMMA, HMMA): {sorted((c.get('HGMMA', 0), c.get('HMMA', 0)) for c in ssd.values())}; "
           f"{sum(bwd.values())} HGMMA in {len(bwd)} bf16 flash backward kernels "
           f"({sorted(bwd.values())}); "
-          f"{sum(ssd_bwd.values())} HMMA in {len(ssd_bwd)} bf16 SSD backward kernels "
+          f"{sum(ssd_bwd.values())} HGMMA in {len(ssd_bwd)} bf16 SSD backward kernels "
           f"({sorted(ssd_bwd.values())})", flush=True)
     check(len(flash) == 7 and all(flash.values()),
           "the bf16 flash kernels do not run on the tensor cores (no HGMMA in their SASS)")
@@ -457,7 +457,8 @@ def phase_build() -> None:
     check(len(ssd) == 4 and all(c.get("HGMMA", 0) and c.get("HMMA", 0) for c in ssd.values()),
           f"the bf16 SSD kernels do not run on the tensor cores: {ssd}")
     check(len(ssd_bwd) == 2 and all(ssd_bwd.values()),
-          f"the bf16 SSD backward kernels do not run on the tensor cores: {ssd_bwd}")
+          f"the bf16 SSD backward kernels do not run on wgmma (no HGMMA in their SASS): "
+          f"{ssd_bwd}")
 
 
 # ---------------------------------------------------------------------------
@@ -853,16 +854,40 @@ def check_flash_grad(case, dtype, timed: bool) -> dict:
     return row
 
 
-def flash_bwd_launch_split(calls: int = 5) -> None:
-    """Each device kernel of one bf16 flash backward call at the timed
-    training shapes, by ``torch.profiler``: its device ms and launches per
-    call, over ``calls`` calls after two outside the profiler (the L2 cache
-    flushed before each call; the flush's fill kernel is left out).  Run in
-    a child process (``--bwd-launches``) so that the profiler never attaches
-    to the process whose later phases read the host clock."""
+def _launch_split(call, flush, calls: int) -> tuple[dict, dict]:
+    """Each device kernel of one call of ``call``, by ``torch.profiler``:
+    (its device ms, its launches) per call, over ``calls`` calls after two
+    outside the profiler, the L2 cache flushed before each call (the
+    flush's fill kernel is left out)."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            call()
+        torch.cuda.synchronize()
+    split: dict[str, list] = {}
+    for e in _device_events(prof):
+        if "FillFunctor" in e.name:
+            continue
+        name = re.sub(r"^void |repro::|\(anonymous namespace\)::", "", e.name).split("(")[0]
+        split.setdefault(name, [0.0, 0])
+        split[name][0] += e.time_range.elapsed_us() / 1e3 / calls
+        split[name][1] += 1
+    return ({k: v[0] for k, v in split.items()}, {k: v[1] / calls for k, v in split.items()})
+
+
+def bwd_launch_split(calls: int = 5) -> None:
+    """Each device kernel of one bf16 backward call of flash attention and
+    of the SSD scan at their timed training shapes (``_launch_split``): its
+    device ms and launches per call.  Run in a child process
+    (``--bwd-launches``) so that the profiler never attaches to the process
+    whose later phases read the host clock."""
     from repro_torch.kernels.attention import flash_attention as fa
+    from repro_torch.kernels.ssd import ssd_scan
 
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=DEVICE)
     for case in GRAD_FLASH_TRAIN + GRAD_FLASH_RG:
@@ -873,27 +898,24 @@ def flash_bwd_launch_split(calls: int = 5) -> None:
         cot = _randn(gen, (b, s_q, h, d), torch.bfloat16)
         kw = dict(causal=causal, window=window, q_offset=s_kv - s_q if causal else 0)
         out, lse = fa._launch(*qkv, lse=True, **kw)
-        for _ in range(2):
-            fa.flash_attention_bwd(*qkv, out, lse, cot, **kw)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                flush.zero_()
-                fa.flash_attention_bwd(*qkv, out, lse, cot, **kw)
-            torch.cuda.synchronize()
-        split: dict[str, list] = {}
-        for e in _device_events(prof):
-            if "FillFunctor" in e.name:
-                continue
-            name = re.sub(r"^void |repro::|\(anonymous namespace\)::", "", e.name).split("(")[0]
-            split.setdefault(name, [0.0, 0])
-            split[name][0] += e.time_range.elapsed_us() / 1e3 / calls
-            split[name][1] += 1
+        ms, n = _launch_split(lambda: fa.flash_attention_bwd(*qkv, out, lse, cot, **kw), flush,
+                              calls)
         emit({"phase": "kernel_grad_launches", "kernel": "flash_attention", "case": list(case),
-              "dtype": "bfloat16", "device_ms": {k: v[0] for k, v in split.items()},
-              "launches_per_call": {k: v[1] / calls for k, v in split.items()},
-              "total_device_ms": sum(v[0] for v in split.values())})
-        del qkv, cot, out, lse, prof
+              "dtype": "bfloat16", "device_ms": ms, "launches_per_call": n,
+              "total_device_ms": sum(ms.values())})
+        del qkv, cot, out, lse
+    for case in GRAD_SSD_TRAIN:
+        b, s, h, p, n_state, chunk, _ = case
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(case, torch.bfloat16, seed=6)
+        dy = _randn(torch.Generator(device=DEVICE).manual_seed(7), x.shape, torch.bfloat16)
+        ms, n = _launch_split(lambda: ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, D, h0, dy, None,
+                                                            chunk=chunk), flush, calls)
+        emit({"phase": "kernel_grad_launches", "kernel": "ssd", "case": list(case),
+              "dtype": "bfloat16", "group": ssd_scan.bwd_group(b, s, h), "device_ms": ms,
+              "launches_per_call": n, "total_device_ms": sum(ms.values())})
+        del x, dt, A, Bm, Cm, D, h0, dy
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def check_ssd_grad(case, dtype, timed: bool) -> dict:
@@ -1062,30 +1084,39 @@ def phase_gradients() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     check_decode_refuses_grad()
-    rows["flash_bwd_launches"] = flash_bwd_launches_in_child()
+    rows["bwd_launches"] = bwd_launches_in_child()
     return rows
 
 
-def flash_bwd_launches_in_child() -> list[dict]:
-    """``flash_bwd_launch_split`` in a child process (the library it loads is
-    this run's build): its lines, each checked to be the launches that
-    ``flash_attention.bwd_plan`` lays out, once each per call."""
+def bwd_launches_in_child() -> list[dict]:
+    """``bwd_launch_split`` in a child process (the library it loads is this
+    run's build): its lines, each checked to be the launches that the
+    kernel's plan lays out (``flash_attention.bwd_plan``,
+    ``ssd_scan.bwd_plan``), once each per call."""
     from repro_torch.kernels.attention import flash_attention as fa
+    from repro_torch.kernels.ssd import ssd_scan
 
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--bwd-launches"],
                            capture_output=True, text=True, timeout=900)
     check(child.returncode == 0, f"--bwd-launches exited {child.returncode}:\n{child.stderr}")
     rows = [json.loads(line) for line in child.stdout.splitlines()
             if line.startswith("{") and "kernel_grad_launches" in line]
-    check(len(rows) == len(GRAD_FLASH_TRAIN + GRAD_FLASH_RG), f"--bwd-launches: {child.stdout}")
+    ssd_rows = [r for r in rows if r["kernel"] == "ssd"]
+    check(len(rows) - len(ssd_rows) == len(GRAD_FLASH_TRAIN + GRAD_FLASH_RG)
+          and len(ssd_rows) == len(GRAD_SSD_TRAIN), f"--bwd-launches: {child.stdout}")
     for row in rows:
         emit(row)
-        b, s_q, s_kv, h, kv, d, causal, window = row["case"]
-        plan = fa.bwd_plan(b, s_q, s_kv, h, kv, d, causal=causal, window=window,
-                           q_offset=s_kv - s_q if causal else 0, dtype=torch.bfloat16)
+        if row["kernel"] == "ssd":
+            b, s, h, p, n, _, _ = row["case"]
+            planned = ssd_scan.bwd_plan(b, s, h, p, n, torch.bfloat16).kernels
+        else:
+            b, s_q, s_kv, h, kv, d, causal, window = row["case"]
+            planned = fa.bwd_plan(b, s_q, s_kv, h, kv, d, causal=causal, window=window,
+                                  q_offset=s_kv - s_q if causal else 0,
+                                  dtype=torch.bfloat16).kernels
         seen = {name.split("<")[0]: n for name, n in row["launches_per_call"].items()}
-        check(seen == dict.fromkeys(plan.kernels, 1.0),
-              f"flash backward {row['case']}: device kernels {seen}, planned {plan.kernels}")
+        check(seen == dict.fromkeys(planned, 1.0),
+              f"{row['kernel']} backward {row['case']}: device kernels {seen}, planned {planned}")
     return rows
 
 
@@ -3365,7 +3396,7 @@ def main() -> None:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
 
     if sys.argv[1:] == ["--bwd-launches"]:  # phase 3b's child process
-        flash_bwd_launch_split()
+        bwd_launch_split()
         return
     t0 = time.perf_counter()
 
@@ -3491,7 +3522,7 @@ def main() -> None:
         "bound_by": g["bwd_bound_by"], "library_ms": g["sdpa_bwd_ms"],
         "fwd_bwd_ms": g["kernel_fwd_bwd_ms"], "old_route_fwd_bwd_ms": g["old_route_fwd_bwd_ms"],
         "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"], "shape": g["case"], "dtype": g["dtype"],
-        "per_launch_device_ms": grads["flash_bwd_launches"][0]["device_ms"],
+        "per_launch_device_ms": grads["bwd_launches"][0]["device_ms"],
     })
     # The SSD scan's backward: the gradient of the SSD kernel below (the TPU
     # kernel has no backward; jax.grad differentiates ref.ssd_chunked), at
@@ -3499,7 +3530,7 @@ def main() -> None:
     g = grads[("ssd", tuple(GRAD_SSD_TRAIN[0]), "bfloat16")]
     kernels.append({
         "name": "ssd_scan_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan_bwd.cu",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan_bwd_sm90.cu",
         "replaces": "src/repro/kernels/ssd/ssd_scan.py:82",
         "replaces_note": "the gradient of that kernel, which jax.grad takes of ref.ssd_chunked",
         "launches": trained["mamba2-370m"]["bwd_launches"],
@@ -3511,6 +3542,8 @@ def main() -> None:
         "library": "none (no single PyTorch call computes the SSD scan or its gradient)",
         "fwd_bwd_ms": g["kernel_fwd_bwd_ms"], "old_route_fwd_bwd_ms": g["old_route_fwd_bwd_ms"],
         "plain_fwd_bwd_ms": g["plain_fwd_bwd_ms"], "shape": g["case"], "dtype": g["dtype"],
+        "per_launch_device_ms": next(r["device_ms"] for r in grads["bwd_launches"]
+                                     if r["kernel"] == "ssd"),
     })
     for row in kernels:
         check(row["launches"] > 0, f"{row['name']}: no launch in the training run")

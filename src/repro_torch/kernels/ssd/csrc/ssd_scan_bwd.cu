@@ -1,6 +1,7 @@
-// Mamba-2 SSD scan's backward for Hopper (sm_90a): dx, ddt, dA, dB, dC, dD
-// and dh0 from the forward's inputs and the cotangents of y (dy) and of the
-// final state (dh_final; null in training, where the state is discarded).
+// Mamba-2 SSD scan's backward for float32 inputs on the card: dx, ddt, dA,
+// dB, dC, dD and dh0 from the forward's inputs and the cotangents of y (dy)
+// and of the final state (dh_final; null in training, where the state is
+// discarded).  bfloat16 inputs take ssd_scan_bwd_sm90.cu.
 //
 // Replaces: nothing on the TPU.  The Pallas kernel
 // src/repro/kernels/ssd/ssd_scan.py::ssd has no custom_vjp; jax.grad
@@ -8,15 +9,12 @@
 // that vector-Jacobian product: ref.ssd_bwd_plain writes out the same passes
 // in PyTorch.
 //
-// What bounds it on an H100: at mamba2-370m's training shape (4 x 4096, H 32,
-// P 64, N 128, bf16) the least work is twice the forward's products, 52.6
-// GFLOP (53 µs of bf16 tensor-core time), and x, dt, B, C, dy read and dx,
-// ddt, dB, dC written, 222 MB (66 µs at 3.35 TB/s): bytes, narrowly.  This
-// kernel is far from either: it keeps the chunk states and their
-// cotangents in device memory (1.07 GB written and read at that shape),
-// sums dB and dC over heads in a second pass, runs one block of 8 warps per
-// SM in its gradient pass, and uses mma.sync, not wgmma.  It is the simple,
-// correct version.
+// What bounds it on an H100: operations.  The least work is twice the
+// forward's products (52.6 GFLOP at mamba2-370m's 4 x 4096, H 32, P 64, N
+// 128) on the FMA pipes at 67 TFLOP/s (a TF32 product would miss float32's
+// tolerance).  This kernel keeps the chunk states and their cotangents in
+// device memory and sums dB and dC over heads in a second pass; it is off
+// the training path, which runs in bf16.
 //
 // The design (the chunked backward; chunk Q = 64 whatever the caller's
 // chunk, since the function does not depend on it), four launches:
@@ -33,29 +31,29 @@
 //      dt_s ∘ dY·Xᵀ (L[t, s] = exp(cum_t − cum_s), s <= t) and U = (C·Bᵀ ∘
 //      L)ᵀ dY + exp(tot − cum) ∘ B·Gᵀ: dx = dt·U + D·dy; this head's dB =
 //      Kᵀ C + dt·exp(tot − cum) ∘ X·G and dC = K B + exp(cum) ∘ dY·H into
-//      scratch; dcum_t = Σ_s (C_t·B_s) K[t, s] + exp(cum_t) dy_t·(H C_t) −
-//      dt_t x_t·U_t, plus ⟨G, the state leaving the chunk⟩ at the chunk's
-//      end, reverse-summed in double within the chunk into da; ddt = x·U +
-//      A·da; the chunk's Σ dt·da and Σ dy·x into scratch.
+//      scratch; dcum_t = Σ_s (C_t·B_s) K[t, s] − Σ_t' (C_t'·B_t) K[t', t] +
+//      exp(cum_t) dy_t·(H C_t) − dt_t exp(tot − cum_t) x_t·(G B_t), plus ⟨G,
+//      the state leaving the chunk⟩ = exp(tot)·⟨G, H⟩ + Σ_t dt_t exp(tot −
+//      cum_t) x_t·(G B_t) at the chunk's end, reverse-summed in double
+//      within the chunk into da; ddt = x·U + A·da; the chunk's Σ dt·da and
+//      Σ dy·x into scratch.  ref.ssd_bwd_plain writes the same dcum with
+//      −dt_t x_t·U_t in place of its second and fourth terms and Σ_t (dt_t
+//      x_t·U_t − Σ_t' (C_t'·B_t) K[t', t]) in place of the end's second;
+//      in float32 the large parts of those sums cancel, and the rounding
+//      left, times Σ dt, would be most of dA's error.
 //   4. ssd_bwd_reduce: dB and dC summed over the heads, and dA and dD over
 //      the batch rows and chunks, each in a fixed order.
 // No atomics: two calls on the same inputs give the same bits.
 //
-// Products: bf16 inputs run them on the tensor cores (mma.sync m16n8k16,
-// fragments by ldmatrix from bf16 tiles in shared memory), float32 inputs on
-// the FMA pipes from float tiles.  x, dy, B and C enter as they are; the
-// float32 operands (the gated scores, K, the states and their cotangents,
-// x∘w and dy∘exp(cum)) enter as bf16 hi + lo planes, each part one product
-// into the same float32 sum (16 bits of mantissa): rounded once, C·Bᵀ ∘ L
-// or K moves dA by 0.13 of its max at mamba2-370m's training shape.  Tile
-// loads are 16-byte cp.async on the MMA route (else 16-byte loads, several
-// in flight per thread): one block runs on an SM, and loads that wait one
-// at a time leave it idle.  The within-chunk cumsum is kept in double and
-// each decay's difference rounded once before the exp, as in the forward
-// kernels.  A ragged last chunk reads dt = 0 and x = B = C = dy = 0 past S,
-// so it adds nothing, and its rows past S are not written.
-#include <type_traits>
-
+// Products run on the FMA pipes from float tiles in shared memory, loaded
+// with 16-byte loads, several in flight per thread; the sums over a chunk
+// row that feed dA, dt and dD (rowt, colt, x·U, dy·x, ⟨G, H⟩, dy·(H C))
+// add their float products in double, four threads a row (rowt and colt
+// add the same float products, so their totals agree).  The within-chunk
+// cumsum is kept in double and each decay's difference rounded once before
+// the exp, as in the forward kernels.  A ragged last chunk reads dt = 0 and
+// x = B = C = dy = 0 past S, so it adds nothing, and its rows past S are
+// not written.
 #include "../../attention/csrc/common.cuh"
 
 namespace repro {
@@ -63,7 +61,6 @@ namespace {
 
 constexpr int kQ = 64;            // internal chunk length
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kAcc = 32;          // accumulators a thread holds: up to 64 x 128 outputs
 
 struct BwdArgs {
@@ -95,167 +92,50 @@ struct BwdArgs {
   long long dy_sb, dy_ss, dy_sh;
 };
 
-template <typename T>
-constexpr bool kMmaOf = std::is_same<T, __nv_bfloat16>::value;
-
-// A tile in shared memory, row-major with row stride ld.  FMA: float
-// values.  MMA: bf16 values in one plane where they are bf16 (x, dy, B, C:
-// exact) and in hi + lo planes where they are float32 (get: hi + lo, 16
-// bits of mantissa), rows 16-byte aligned and padded by 8 values so that
-// ldmatrix's 8 row reads hit distinct banks.
-template <bool kMma>
-struct Tile;
-template <>
-struct Tile<false> {
+// A float tile in shared memory, row-major with row stride ld.
+struct Tile {
   float* p;
   int ld;
   __device__ __forceinline__ float get(int r, int c) const { return p[r * ld + c]; }
-  __device__ __forceinline__ float get_hi(int r, int c) const { return p[r * ld + c]; }
   __device__ __forceinline__ void set(int r, int c, float v) const { p[r * ld + c] = v; }
 };
-template <>
-struct Tile<true> {
-  __nv_bfloat16* hi;
-  __nv_bfloat16* lo;  // null where the values are bf16
-  int ld;
-  __device__ __forceinline__ float get(int r, int c) const {
-    const float v = __bfloat162float(hi[r * ld + c]);
-    return lo != nullptr ? v + __bfloat162float(lo[r * ld + c]) : v;
-  }
-  __device__ __forceinline__ float get_hi(int r, int c) const {  // the hi plane alone
-    return __bfloat162float(hi[r * ld + c]);
-  }
-  __device__ __forceinline__ void set(int r, int c, float v) const {
-    const __nv_bfloat16 h = __float2bfloat16(v);
-    hi[r * ld + c] = h;
-    if (lo != nullptr) lo[r * ld + c] = __float2bfloat16(v - __bfloat162float(h));
-  }
-};
-
-// Four 8 x 8 bf16 matrices from the row addresses lanes 8i..8i+7 give for
-// matrix i, transposed with kTrans.
-template <bool kTrans>
-__device__ __forceinline__ void ldsm(uint32_t* r, const __nv_bfloat16* row) {
-  if constexpr (kTrans) {
-    ldmatrix_x4_trans(r, row);
-  } else {
-    ldmatrix_x4(r, row);
-  }
-}
 
 __device__ __forceinline__ void zero(float* acc) {
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 }
 
-// The MMA route of gemm for a warp that owns kTiles 8-column tiles (with
-// kGuard, up to kTiles: those at or past N are skipped).  Each k step loads
-// every fragment first and then issues the products tile after tile, hi·hi,
-// then hi·lo, then lo·hi, so that no product waits on the one before it.
-template <bool kAT, bool kBT, int kTiles, bool kGuard>
-__device__ __forceinline__ void mma_tiles(float* acc, int M, int N, int K, const Tile<true> A,
-                                          const Tile<true> B) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mt = M / 16, nt = N / 8, wpr = kWarps / mt, tm = warp % mt, tn0 = warp / mt;
-  const int r8 = lane % 8, mat = lane / 8;  // this lane gives row r8 of matrix mat
-  const bool a_lo = A.lo != nullptr, b_lo = B.lo != nullptr;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    // A's matrices: rows +0 / +8 and columns +0 / +8, in a0..a3's order.
-    const int am = tm * 16 + (mat & 1) * 8, ak = k0 + (mat >> 1) * 8;
-    const int aoff = kAT ? (ak + r8) * A.ld + am : (am + r8) * A.ld + ak;
-    uint32_t ahi[4], alo[4], bf[kTiles][4];
-    ldsm<kAT>(ahi, A.hi + aoff);
-    if (a_lo) ldsm<kAT>(alo, A.lo + aoff);
-    // B's matrices: k +0 / +8 from the hi plane, then from the lo.
-    const int bk = k0 + (mat & 1) * 8;
-    const __nv_bfloat16* bp = mat < 2 || !b_lo ? B.hi : B.lo;
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      const int bn = (tn0 + wpr * j) * 8;
-      if (!kGuard || bn < N) ldsm<kBT>(bf[j], bp + (kBT ? (bk + r8) * B.ld + bn : (bn + r8) * B.ld + bk));
-    }
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j)
-      if (!kGuard || tn0 + wpr * j < nt) mma_bf16(acc + 4 * j, ahi, bf[j][0], bf[j][1]);
-    if (b_lo) {
-#pragma unroll
-      for (int j = 0; j < kTiles; ++j)
-        if (!kGuard || tn0 + wpr * j < nt) mma_bf16(acc + 4 * j, ahi, bf[j][2], bf[j][3]);
-    }
-    if (a_lo) {
-#pragma unroll
-      for (int j = 0; j < kTiles; ++j)
-        if (!kGuard || tn0 + wpr * j < nt) mma_bf16(acc + 4 * j, alo, bf[j][0], bf[j][1]);
-    }
-  }
-}
-
 // acc += A · B for A (M x K) stored [m][k], or [k][m] with kAT, and B
 // (K x N) stored [n][k], or [k][n] with kBT.  M is 16, 32 or 64, N a
-// multiple of 16 up to 128, K a multiple of 16.
-// FMA: thread (ty, tx) = (tid / 16, tid % 16) owns (ty + 16i, tx + 16j) at
-// acc[8i + j].  MMA (mma.sync m16n8k16): warp w owns the 16-row block
-// w % (M/16) and the 8-column tiles w / (M/16) + (8 / (M/16))·j at
-// acc[4j .. 4j + 3], in mma.sync's C layout; the fragments come from
-// ldmatrix (.trans where the tile is stored the other way), and a tile with
-// a lo plane enters as hi + lo, each part one product into the same float32
-// sum (the lo·lo product is left out).  Where the warps' tiles divide the
-// columns evenly (every shape of mamba2-370m), a path with no guard runs.
-template <bool kMma, bool kAT, bool kBT>
-__device__ __forceinline__ void gemm(float* acc, int M, int N, int K, const Tile<kMma> A,
-                                     const Tile<kMma> B) {
-  if constexpr (!kMma) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16, mi = M / 16, nj = N / 16;
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[8];
+// multiple of 16 up to 128.  Thread (ty, tx) = (tid / 16, tid % 16) owns
+// (ty + 16i, tx + 16j) at acc[8i + j].
+template <bool kAT, bool kBT>
+__device__ __forceinline__ void gemm(float* acc, int M, int N, int K, const Tile A, const Tile B) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16, mi = M / 16, nj = N / 16;
+  for (int k = 0; k < K; ++k) {
+    float av[4], bv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        av[i] = i < mi ? (kAT ? A.get(k, ty + 16 * i) : A.get(ty + 16 * i, k)) : 0.f;
+    for (int i = 0; i < 4; ++i)
+      av[i] = i < mi ? (kAT ? A.get(k, ty + 16 * i) : A.get(ty + 16 * i, k)) : 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        bv[j] = j < nj ? (kBT ? B.get(k, tx + 16 * j) : B.get(tx + 16 * j, k)) : 0.f;
+    for (int j = 0; j < 8; ++j)
+      bv[j] = j < nj ? (kBT ? B.get(k, tx + 16 * j) : B.get(tx + 16 * j, k)) : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[8 * i + j] += av[i] * bv[j];
-    }
-  } else {
-    const int nt = N / 8, wpr = kWarps / (M / 16);
-    if (nt == 8 * wpr) {
-      mma_tiles<kAT, kBT, 8, false>(acc, M, N, K, A, B);
-    } else if (nt == 4 * wpr) {
-      mma_tiles<kAT, kBT, 4, false>(acc, M, N, K, A, B);
-    } else if (nt == 2 * wpr) {
-      mma_tiles<kAT, kBT, 2, false>(acc, M, N, K, A, B);
-    } else {
-      mma_tiles<kAT, kBT, kAcc / 4, true>(acc, M, N, K, A, B);
-    }
+      for (int j = 0; j < 8; ++j) acc[8 * i + j] += av[i] * bv[j];
   }
 }
 
 // f(m, n, v) for each output (m, n) of an M x N product this thread holds.
-template <bool kMma, typename F>
+template <typename F>
 __device__ __forceinline__ void for_each(float* acc, int M, int N, F f) {
-  if constexpr (!kMma) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16, mi = M / 16, nj = N / 16;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16, mi = M / 16, nj = N / 16;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (i < mi && j < nj) f(ty + 16 * i, tx + 16 * j, acc[8 * i + j]);
-  } else {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-    const int mt = M / 16, nt = N / 8, wpr = kWarps / mt;
-    const int row = (warp % mt) * 16 + g, tn0 = warp / mt;
-#pragma unroll
-    for (int j = 0; j < kAcc / 4; ++j) {
-      const int tn = tn0 + wpr * j;
-      if (tn < nt) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) f(row + 8 * (r >> 1), tn * 8 + 2 * q + (r & 1), acc[4 * j + r]);
-      }
-    }
-  }
+    for (int j = 0; j < 8; ++j)
+      if (i < mi && j < nj) f(ty + 16 * i, tx + 16 * j, acc[8 * i + j]);
 }
 
 // Lane-wise sum over the warp, in a fixed order (every lane gets it).
@@ -263,6 +143,19 @@ __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Σ f(k) over lo <= k < hi in double for one chunk row, four threads a row
+// (row threadIdx.x / 4; quarter q = threadIdx.x % 4 takes k ≡ lo + q mod 4),
+// the quarters added by shuffles in a fixed order: all four get the same
+// bits.  Every thread of the block calls it.
+static_assert(kThreads == 4 * kQ, "four threads a chunk row");
+template <typename F>
+__device__ __forceinline__ double row_sum(int lo, int hi, F f) {
+  double r = 0.0;
+  for (int k = lo + threadIdx.x % 4; k < hi; k += 4) r += f(k);
+  r += __shfl_xor_sync(0xffffffffu, r, 1);
+  return r + __shfl_xor_sync(0xffffffffu, r, 2);
 }
 
 // dt of the chunk (0 past S) and cum, the inclusive cumsum of the float32
@@ -296,16 +189,16 @@ __device__ void load_decay(const BwdArgs& a, int b, int h, int t0, int valid, fl
   for (int e = 0; e < E; ++e) acum_s[lane * E + e] = excl + v[e];
 }
 
-// `rows` rows of `cols` values (row stride `rs` in device memory), zero past
+// `rows` rows of `cols` floats (row stride `rs` in device memory), zero past
 // `valid` rows and from `cols` to `cols_pad`: put(row, col, value) for each.
-// Where the rows are 16-byte aligned, 16-byte loads (Vec); else one value a
-// load.  Each thread issues kBatch loads before it puts any, so that a block
-// keeps that many in flight per thread.
+// Where the rows are 16-byte aligned, 16-byte loads; else one value a load.
+// Each thread issues kBatch loads before it puts any, so that a block keeps
+// that many in flight per thread.
 constexpr int kBatch = 4;
-template <typename T, typename Put>
-__device__ __forceinline__ void load_rows(const T* src, long long rs, int rows, int valid,
+template <typename Put>
+__device__ __forceinline__ void load_rows(const float* src, long long rs, int rows, int valid,
                                           int cols, int cols_pad, Put put) {
-  constexpr int V = Vec<T>::N;
+  constexpr int V = Vec<float>::N;
   if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && rs % V == 0 && cols % V == 0) {
     const int per_row = cols_pad / V, total = rows * per_row;
     for (int base = threadIdx.x; base < total; base += kThreads * kBatch) {
@@ -314,7 +207,7 @@ __device__ __forceinline__ void load_rows(const T* src, long long rs, int rows, 
       for (int u = 0; u < kBatch; ++u) {
         const int i = base + u * kThreads, t = i / per_row, c = i % per_row * V;
         if (i < total && t < valid && c < cols) {
-          Vec<T>::load(src + t * rs + c, v[u]);
+          Vec<float>::load(src + t * rs + c, v[u]);
         } else {
 #pragma unroll
           for (int e = 0; e < V; ++e) v[u][e] = 0.f;
@@ -337,7 +230,7 @@ __device__ __forceinline__ void load_rows(const T* src, long long rs, int rows, 
 #pragma unroll
     for (int u = 0; u < kBatch * 2; ++u) {
       const int i = base + u * kThreads, t = i / cols_pad, n = i % cols_pad;
-      v[u] = i < total && t < valid && n < cols ? to_float(src[t * rs + n]) : 0.f;
+      v[u] = i < total && t < valid && n < cols ? src[t * rs + n] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kBatch * 2; ++u) {
@@ -347,79 +240,37 @@ __device__ __forceinline__ void load_rows(const T* src, long long rs, int rows, 
   }
 }
 
-// `rows` rows of `cols` values (row stride `rs`) copied as they are into
-// shared memory (row stride ld) by 16-byte cp.async, zeros past `valid` rows
-// and from `cols` to `cols_pad`; false, and nothing copied, where the rows
-// are not 16-byte aligned or there is no operand.  The caller waits.
-template <typename T>
-__device__ __forceinline__ bool copy_rows_async(T* dst, int ld, const T* src, long long rs,
-                                                int rows, int valid, int cols, int cols_pad) {
-  constexpr int V = 16 / sizeof(T);
-  if (src == nullptr || reinterpret_cast<uintptr_t>(src) % 16 != 0 || rs % V != 0 ||
-      cols % V != 0)
-    return false;
-  const int per_row = cols_pad / V;
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-    const int t = i / per_row, c = i % per_row * V;
-    const bool in = t < valid && c < cols;
-    cp_async16(dst + t * ld + c, in ? src + t * rs + c : src, in);
-  }
-  return true;
-}
-
-// An operand's kQ rows into its tile: on the MMA route the bf16 values as
-// they are, into the hi plane, by cp.async where the rows allow it;
-// otherwise (and on the FMA route) through registers.
-template <typename T>
-__device__ __forceinline__ void load_tile(const Tile<kMmaOf<T>>& dst, const T* src, long long rs,
+// An operand's kQ rows into its tile.
+__device__ __forceinline__ void load_tile(const Tile& dst, const float* src, long long rs,
                                           int valid, int cols, int cols_pad) {
-  if constexpr (kMmaOf<T>) {
-    if (copy_rows_async(dst.hi, dst.ld, src, rs, kQ, valid, cols, cols_pad)) return;
-  }
   load_rows(src, rs, kQ, valid, cols, cols_pad, [&](int t, int n, float v) { dst.set(t, n, v); });
 }
 
-template <typename T>
 struct Operands {  // a block's rows of x, dy, B and C in device memory
-  const T *x, *dy, *bm, *cm;
+  const float *x, *dy, *bm, *cm;
   __device__ Operands(const BwdArgs& a, int b, int h, int t0) {
-    x = static_cast<const T*>(a.x) + b * a.x_sb + h * a.x_sh + t0 * a.x_ss;
-    dy = a.dy == nullptr ? nullptr
-                         : static_cast<const T*>(a.dy) + b * a.dy_sb + h * a.dy_sh + t0 * a.dy_ss;
-    bm = static_cast<const T*>(a.Bm) + b * a.b_sb + t0 * a.b_ss;
-    cm = static_cast<const T*>(a.Cm) + b * a.c_sb + t0 * a.c_ss;
+    x = static_cast<const float*>(a.x) + b * a.x_sb + h * a.x_sh + t0 * a.x_ss;
+    dy = a.dy == nullptr
+             ? nullptr
+             : static_cast<const float*>(a.dy) + b * a.dy_sb + h * a.dy_sh + t0 * a.dy_ss;
+    bm = static_cast<const float*>(a.Bm) + b * a.b_sb + t0 * a.b_ss;
+    cm = static_cast<const float*>(a.Cm) + b * a.c_sb + t0 * a.c_ss;
   }
 };
 
-// Shared memory, in bytes: the vectors, then tiles of `elems` values each,
-// each 16-byte aligned.  The tiles' row padding: 8 values on the MMA route
-// (ldmatrix), 1 on the FMA route.
+// Shared memory, in bytes: the vectors, then float tiles, each 16-byte
+// aligned, their rows padded by one value.
 __host__ __device__ constexpr int round16(int bytes) { return (bytes + 15) / 16 * 16; }
-template <typename T>
-constexpr int kPadOf = kMmaOf<T> ? 8 : 1;
-template <typename T>
-constexpr int kElemOf = kMmaOf<T> ? 2 : 4;  // bytes of a tile value
+constexpr int kPad = 1;
 
 // Tile views of a bump-allocated region of shared memory.
-template <typename T>
 struct Carve {
   char* base;
   int at;
-  __device__ Tile<kMmaOf<T>> tile(int rows, int ld, bool split) {
-    if constexpr (kMmaOf<T>) {
-      auto* hi = reinterpret_cast<__nv_bfloat16*>(base + at);
-      at += round16(rows * ld * 2);
-      __nv_bfloat16* lo = nullptr;
-      if (split) {
-        lo = reinterpret_cast<__nv_bfloat16*>(base + at);
-        at += round16(rows * ld * 2);
-      }
-      return {hi, lo, ld};
-    } else {
-      auto* p = reinterpret_cast<float*>(base + at);
-      at += round16(rows * ld * 4);
-      return {p, ld};
-    }
+  __device__ Tile tile(int rows, int ld) {
+    auto* p = reinterpret_cast<float*>(base + at);
+    at += round16(rows * ld * 4);
+    return {p, ld};
   }
   __device__ float* floats(int n) {
     float* p = reinterpret_cast<float*>(base + at);
@@ -428,47 +279,41 @@ struct Carve {
   }
 };
 
-// Pass 1's shared memory: cum (double), dt, then x∘w and dy∘exp(cum)
-// (split), B and C.
-template <typename T>
+// Pass 1's shared memory: cum (double), dt, then x∘w and dy∘exp(cum), B and
+// C.
 __host__ __device__ constexpr int states_smem(int P, int NP) {
-  const int planes = kMmaOf<T> ? 2 : 1, xs = P + kPadOf<T>, ns = NP + kPadOf<T>;
-  return round16(3 * kQ * 4) + 2 * planes * round16(kQ * xs * kElemOf<T>) +
-         2 * round16(kQ * ns * kElemOf<T>);
+  return round16(3 * kQ * 4) + 2 * round16(kQ * (P + kPad) * 4) +
+         2 * round16(kQ * (NP + kPad) * 4);
 }
 
 // Pass 1: each chunk's own part of H, (x∘w)ᵀ B, and of G, (dy∘exp(cum))ᵀ C,
 // and tot.
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_states_kernel(BwdArgs a) {
-  constexpr bool kMma = kMmaOf<T>;
   extern __shared__ float smem[];
   const int P = a.P, N = a.N, NP = a.NP;
   double* acum_s = reinterpret_cast<double*>(smem);  // kQ
   float* dt_s = smem + 2 * kQ;                       // kQ
-  Carve<T> mem{reinterpret_cast<char*>(smem), round16(3 * kQ * 4)};
-  const Tile<kMma> xw = mem.tile(kQ, P + kPadOf<T>, true);   // x_s·exp(tot − cum_s)·dt_s
-  const Tile<kMma> dyw = mem.tile(kQ, P + kPadOf<T>, true);  // dy_t·exp(cum_t)
-  const Tile<kMma> bt = mem.tile(kQ, NP + kPadOf<T>, false);
-  const Tile<kMma> ct = mem.tile(kQ, NP + kPadOf<T>, false);
+  Carve mem{reinterpret_cast<char*>(smem), round16(3 * kQ * 4)};
+  const Tile xw = mem.tile(kQ, P + kPad);   // x_s·exp(tot − cum_s)·dt_s
+  const Tile dyw = mem.tile(kQ, P + kPad);  // dy_t·exp(cum_t)
+  const Tile bt = mem.tile(kQ, NP + kPad);
+  const Tile ct = mem.tile(kQ, NP + kPad);
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int t0 = c * kQ, valid = min(kQ, a.S - t0);
-  const Operands<T> in(a, b, h, t0);
+  const Operands in(a, b, h, t0);
 
-  // x and dy go into the hi planes (exact) and are scaled and split below.
+  // x and dy land as they are and are scaled below.
   load_tile(xw, in.x, a.x_ss, valid, P, P);
   load_tile(dyw, in.dy, a.dy_ss, in.dy ? valid : 0, P, P);
   load_tile(bt, in.bm, a.b_ss, valid, N, NP);
   load_tile(ct, in.cm, a.c_ss, valid, N, NP);
-  cp_async_commit();
   load_decay(a, b, h, t0, valid, dt_s, acum_s);
-  cp_async_wait<0>();
   __syncthreads();
   const double tot = acum_s[kQ - 1];
   for (int i = threadIdx.x; i < kQ * P; i += kThreads) {
     const int t = i / P, p = i % P;
-    xw.set(t, p, xw.get_hi(t, p) * (expf(static_cast<float>(tot - acum_s[t])) * dt_s[t]));
-    dyw.set(t, p, dyw.get_hi(t, p) * expf(static_cast<float>(acum_s[t])));
+    xw.set(t, p, xw.get(t, p) * (expf(static_cast<float>(tot - acum_s[t])) * dt_s[t]));
+    dyw.set(t, p, dyw.get(t, p) * expf(static_cast<float>(acum_s[t])));
   }
   __syncthreads();
 
@@ -476,15 +321,15 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_states_kernel(BwdArgs a) {
   const long long plane = (long long)a.B * a.H * a.nc * P * N;
   float acc[kAcc];
   const auto write = [&](float* out) {
-    for_each<kMma>(acc, P, NP, [&](int m, int n, float& v) {
+    for_each(acc, P, NP, [&](int m, int n, float& v) {
       if (n < N) out[m * N + n] = v;
     });
   };
   zero(acc);
-  gemm<kMma, true, true>(acc, P, NP, kQ, xw, bt);
+  gemm<true, true>(acc, P, NP, kQ, xw, bt);
   write(a.states + bhc * P * N);
   zero(acc);
-  gemm<kMma, true, true>(acc, P, NP, kQ, dyw, ct);
+  gemm<true, true>(acc, P, NP, kQ, dyw, ct);
   write(a.states + plane + bhc * P * N);
   if (threadIdx.x == 0) a.a_tot[bhc] = static_cast<float>(tot);
 }
@@ -555,97 +400,59 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_passing_kernel(BwdArgs a) {
   }
 }
 
-// Pass 3's shared memory: cum (double), eight vectors of kQ floats and one
-// of kThreads, then x, dy, C and B, C·Bᵀ ∘ L (S1) and K (S2) (split), G
-// then H (split), and on the MMA route C·Bᵀ and K again as float tiles for
-// the sums (on the FMA route S1 and S2 hold them) and a float tile that G
-// and then H land in (cp.async) before they are split; last U, then H C
-// (float).
-constexpr int kVecBytes = kQ * 8 + 8 * kQ * 4 + kThreads * 4;
-template <typename T>
+// Pass 3's shared memory: seven vectors of kQ doubles (cum and the sums
+// below) and one of kThreads, three of kQ floats, then x, dy, C and B, C·Bᵀ
+// then C·Bᵀ ∘ L (S1), K (S2), G then H, and last U, then H C.
+constexpr int kVecBytes = 7 * kQ * 8 + kThreads * 8 + 3 * kQ * 4;
 __host__ __device__ constexpr int grads_smem(int P, int NP) {
-  const int planes = kMmaOf<T> ? 2 : 1, e = kElemOf<T>;
-  const int xs = P + kPadOf<T>, ns = NP + kPadOf<T>, qs = kQ + kPadOf<T>;
-  return kVecBytes + 2 * round16(kQ * xs * e) + 2 * round16(kQ * ns * e) +
-         2 * planes * round16(kQ * qs * e) + planes * round16(P * ns * e) +
-         (kMmaOf<T> ? 2 * round16(kQ * (kQ + 4) * 4) + round16(P * NP * 4) : 0) +
-         round16(kQ * (P + 4) * 4);
+  const int xs = P + kPad, ns = NP + kPad, qs = kQ + kPad;
+  return kVecBytes + 2 * round16(kQ * xs * 4) + 2 * round16(kQ * ns * 4) +
+         2 * round16(kQ * qs * 4) + round16(P * ns * 4) + round16(kQ * (P + 4) * 4);
 }
 
 // Pass 3: one chunk of one head of one batch row.
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_grads_kernel(BwdArgs a) {
-  constexpr bool kMma = kMmaOf<T>;
   extern __shared__ float smem[];
   const int P = a.P, N = a.N, NP = a.NP;
   const int tid = threadIdx.x;
   double* acum_s = reinterpret_cast<double*>(smem);  // kQ
-  float* dt_s = smem + 2 * kQ;      // kQ
+  double* rowt_s = acum_s + kQ;     // Σ_s (C_t·B_s) K[t, s]
+  double* colt_s = rowt_s + kQ;     // Σ_t (C_t·B_s) K[t, s]
+  double* xu_s = colt_s + kQ;       // x_t·U_t
+  double* xug_s = xu_s + kQ;        // x_t·(exp(tot − cum_t) G B_t), U's part from G
+  double* inter_s = xug_s + kQ;     // exp(cum_t) dy_t·(H C_t)
+  double* dyx_s = inter_s + kQ;     // dy_t·x_t
+  double* red_s = dyx_s + kQ;       // kThreads: ⟨G, H⟩ per thread
+  float* dt_s = reinterpret_cast<float*>(red_s + kThreads);  // kQ
   float* ecum_s = dt_s + kQ;        // exp(cum_t)
   float* etail_s = ecum_s + kQ;     // exp(tot − cum_t)
-  float* rowt_s = etail_s + kQ;     // Σ_s (C_t·B_s) K[t, s]
-  float* colt_s = rowt_s + kQ;      // Σ_t (C_t·B_s) K[t, s]
-  float* xu_s = colt_s + kQ;        // x_t·U_t
-  float* inter_s = xu_s + kQ;       // exp(cum_t) dy_t·(H C_t)
-  float* dyx_s = inter_s + kQ;      // dy_t·x_t
-  float* red_s = dyx_s + kQ;        // kThreads: ⟨G, H⟩ per thread
-  Carve<T> mem{reinterpret_cast<char*>(smem), kVecBytes};
-  const int xs = P + kPadOf<T>, ns = NP + kPadOf<T>, qs = kQ + kPadOf<T>;
-  const Tile<kMma> xt = mem.tile(kQ, xs, false);
-  const Tile<kMma> dyt = mem.tile(kQ, xs, false);
-  const Tile<kMma> ct = mem.tile(kQ, ns, false);
-  const Tile<kMma> bt = mem.tile(kQ, ns, false);
-  const Tile<kMma> s1 = mem.tile(kQ, qs, true);   // C·Bᵀ ∘ L
-  const Tile<kMma> s2 = mem.tile(kQ, qs, true);   // K
-  const Tile<kMma> gh = mem.tile(P, ns, true);    // G, then H
-  // C·Bᵀ and K as floats, (kQ x qf): their own tiles on the MMA route,
-  // S1's and S2's on the FMA route.
-  int qf = qs;
-  float *cbf, *kf, *stage = nullptr;  // stage: (P x NP), G then H as they are
-  if constexpr (kMma) {
-    qf = kQ + 4;
-    cbf = mem.floats(kQ * qf);
-    kf = mem.floats(kQ * qf);
-    stage = mem.floats(P * NP);
-  } else {
-    cbf = s1.p;
-    kf = s2.p;
-  }
+  Carve mem{reinterpret_cast<char*>(smem), kVecBytes};
+  const int xs = P + kPad, ns = NP + kPad, qs = kQ + kPad;
+  const Tile xt = mem.tile(kQ, xs);
+  const Tile dyt = mem.tile(kQ, xs);
+  const Tile ct = mem.tile(kQ, ns);
+  const Tile bt = mem.tile(kQ, ns);
+  const Tile s1 = mem.tile(kQ, qs);   // C·Bᵀ, then C·Bᵀ ∘ L
+  const Tile s2 = mem.tile(kQ, qs);   // K
+  const Tile gh = mem.tile(P, ns);    // G, then H
+  const int qf = qs;
+  float *cbf = s1.p, *kf = s2.p;
   const int uf = P + 4;
   float* u_s = mem.floats(kQ * uf);  // U, then H C
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int t0 = c * kQ, valid = min(kQ, a.S - t0);
   const long long bhc = ((long long)b * a.H + h) * a.nc + c;
   const long long plane = (long long)a.B * a.H * a.nc * P * N;
-  const Operands<T> in(a, b, h, t0);
+  const Operands in(a, b, h, t0);
 
   const float* G = a.states + plane + bhc * P * N;
   const float* H = a.states + bhc * P * N;
-  // The MMA route lands G (and later H) as it is in `stage` and splits it
-  // there: every load of the block is in flight at once, and H's during
-  // the products that come before it is needed.
-  const auto land = [&](const float* src) {
-    if (!copy_rows_async(stage, NP, src, N, P, P, N, NP))
-      load_rows(src, N, P, P, N, NP, [&](int p, int n, float v) { stage[p * NP + n] = v; });
-    cp_async_commit();
-  };
   load_tile(xt, in.x, a.x_ss, valid, P, P);
   load_tile(dyt, in.dy, a.dy_ss, in.dy ? valid : 0, P, P);
   load_tile(ct, in.cm, a.c_ss, valid, N, NP);
   load_tile(bt, in.bm, a.b_ss, valid, N, NP);
-  if constexpr (kMma) {
-    land(G);
-  } else {
-    load_rows(G, N, P, P, N, NP, [&](int p, int n, float v) { gh.set(p, n, v); });
-  }
+  load_rows(G, N, P, P, N, NP, [&](int p, int n, float v) { gh.set(p, n, v); });
   load_decay(a, b, h, t0, valid, dt_s, acum_s);
-  if constexpr (kMma) {
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int i = tid; i < P * NP; i += kThreads) gh.set(i / NP, i % NP, stage[i]);
-    __syncthreads();
-    land(H);
-  }
   __syncthreads();
   const double tot = acum_s[kQ - 1];
   if (tid < kQ) {
@@ -656,31 +463,32 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_grads_kernel(BwdArgs a) {
   // C·Bᵀ, and K = L ∘ dt_s ∘ dY·Xᵀ on and below the diagonal (selected
   // before the exp, whose argument is positive above it), 0 above.
   zero(acc);
-  gemm<kMma, false, false>(acc, kQ, kQ, NP, ct, bt);
-  for_each<kMma>(acc, kQ, kQ, [&](int t, int s, float& v) { cbf[t * qf + s] = v; });
+  gemm<false, false>(acc, kQ, kQ, NP, ct, bt);
+  for_each(acc, kQ, kQ, [&](int t, int s, float& v) { cbf[t * qf + s] = v; });
   zero(acc);
-  gemm<kMma, false, false>(acc, kQ, kQ, P, dyt, xt);
-  for_each<kMma>(acc, kQ, kQ, [&](int t, int s, float& v) {
+  gemm<false, false>(acc, kQ, kQ, P, dyt, xt);
+  for_each(acc, kQ, kQ, [&](int t, int s, float& v) {
     const float k =
         s <= t ? expf(static_cast<float>(acum_s[t] - acum_s[s])) * dt_s[s] * v : 0.f;
     kf[t * qf + s] = k;
-    if constexpr (kMma) s2.set(t, s, k);
   });
   __syncthreads();
-  if (tid < kQ) {
-    float r = 0.f;
-    for (int s = 0; s <= tid; ++s) r += cbf[tid * qf + s] * kf[tid * qf + s];
-    rowt_s[tid] = r;
-  } else if (tid < 2 * kQ) {
-    const int s = tid - kQ;
-    float r = 0.f;
-    for (int t = s; t < kQ; ++t) r += cbf[t * qf + s] * kf[t * qf + s];
-    colt_s[s] = r;
-  } else if (tid < 3 * kQ) {
-    const int t = tid - 2 * kQ;
-    float r = 0.f;
-    for (int p = 0; p < P; ++p) r += dyt.get(t, p) * xt.get(t, p);
-    dyx_s[t] = r;
+  const int row = tid / 4;  // this thread's chunk row in row_sum
+  {
+    const double rowt = row_sum(0, row + 1, [&](int s) {
+      return static_cast<double>(cbf[row * qf + s] * kf[row * qf + s]);
+    });
+    const double colt = row_sum(row, kQ, [&](int t) {
+      return static_cast<double>(cbf[t * qf + row] * kf[t * qf + row]);
+    });
+    const double dyx = row_sum(0, P, [&](int p) {
+      return static_cast<double>(dyt.get(row, p) * xt.get(row, p));
+    });
+    if (tid % 4 == 0) {
+      rowt_s[row] = rowt;
+      colt_s[row] = colt;
+      dyx_s[row] = dyx;
+    }
   }
   __syncthreads();
   for (int i = tid; i < kQ * kQ; i += kThreads) {
@@ -691,71 +499,84 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_grads_kernel(BwdArgs a) {
   __syncthreads();
 
   // U = exp(tot − cum) ∘ B·Gᵀ + (C·Bᵀ ∘ L)ᵀ dY, (kQ x P); dx = dt·U + D·dy.
+  // x·U's first part on its own (xug) as well.
   zero(acc);
-  gemm<kMma, false, false>(acc, kQ, P, NP, bt, gh);
-  for_each<kMma>(acc, kQ, P, [&](int m, int, float& v) { v *= etail_s[m]; });
-  gemm<kMma, true, true>(acc, kQ, P, kQ, s1, dyt);
-  T* dx = static_cast<T*>(a.dx) + ((long long)b * a.S + t0) * a.H * P + (long long)h * P;
-  const float Dh = a.D[h];
-  for_each<kMma>(acc, kQ, P, [&](int m, int n, float& v) {
+  gemm<false, false>(acc, kQ, P, NP, bt, gh);
+  for_each(acc, kQ, P, [&](int m, int n, float& v) {
+    v *= etail_s[m];
     u_s[m * uf + n] = v;
-    if (m < valid) dx[(long long)m * a.H * P + n] = from_float<T>(dt_s[m] * v + Dh * dyt.get(m, n));
   });
   __syncthreads();
-  if (tid < kQ) {
-    float r = 0.f;
-    for (int p = 0; p < P; ++p) r += xt.get(tid, p) * u_s[tid * uf + p];
-    xu_s[tid] = r;
+  const auto xu_row = [&]() {
+    return row_sum(0, P, [&](int p) {
+      return static_cast<double>(xt.get(row, p) * u_s[row * uf + p]);
+    });
+  };
+  {
+    const double r = xu_row();
+    if (tid % 4 == 0) xug_s[row] = r;
+  }
+  __syncthreads();
+  gemm<true, true>(acc, kQ, P, kQ, s1, dyt);
+  float* dx =
+      static_cast<float*>(a.dx) + ((long long)b * a.S + t0) * a.H * P + (long long)h * P;
+  const float Dh = a.D[h];
+  for_each(acc, kQ, P, [&](int m, int n, float& v) {
+    u_s[m * uf + n] = v;
+    if (m < valid) dx[(long long)m * a.H * P + n] = dt_s[m] * v + Dh * dyt.get(m, n);
+  });
+  __syncthreads();
+  {
+    const double r = xu_row();
+    if (tid % 4 == 0) xu_s[row] = r;
   }
 
   // This head's dB = dt·exp(tot − cum) ∘ X·G + Kᵀ C, (kQ x N).
   const long long part_row = (long long)a.H * N;
   float* part = a.parts + ((long long)b * a.S + t0) * part_row + (long long)h * N;
   zero(acc);
-  gemm<kMma, false, true>(acc, kQ, NP, P, xt, gh);
-  for_each<kMma>(acc, kQ, NP, [&](int m, int, float& v) { v *= dt_s[m] * etail_s[m]; });
-  gemm<kMma, true, true>(acc, kQ, NP, kQ, s2, ct);
-  for_each<kMma>(acc, kQ, NP, [&](int m, int n, float& v) {
+  gemm<false, true>(acc, kQ, NP, P, xt, gh);
+  for_each(acc, kQ, NP, [&](int m, int, float& v) { v *= dt_s[m] * etail_s[m]; });
+  gemm<true, true>(acc, kQ, NP, kQ, s2, ct);
+  for_each(acc, kQ, NP, [&](int m, int n, float& v) {
     if (m < valid && n < N) part[m * part_row + n] = v;
   });
   __syncthreads();
 
   // H in place of G, and ⟨G, H⟩ on the way.
-  float ghs = 0.f;
+  double ghs = 0.0;
   const auto swap_in = [&](int p, int n, float v) {
-    ghs += gh.get(p, n) * v;
+    ghs += static_cast<double>(gh.get(p, n) * v);
     gh.set(p, n, v);
   };
-  if constexpr (kMma) {
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int i = tid; i < P * NP; i += kThreads) swap_in(i / NP, i % NP, stage[i]);
-  } else {
-    load_rows(H, N, P, P, N, NP, swap_in);
-  }
+  load_rows(H, N, P, P, N, NP, swap_in);
   red_s[tid] = ghs;
   __syncthreads();
   // H C into u_s (kQ x P), and this head's dC = exp(cum) ∘ dY·H + K B.
   zero(acc);
-  gemm<kMma, false, false>(acc, kQ, P, NP, ct, gh);
-  for_each<kMma>(acc, kQ, P, [&](int m, int n, float& v) { u_s[m * uf + n] = v; });
+  gemm<false, false>(acc, kQ, P, NP, ct, gh);
+  for_each(acc, kQ, P, [&](int m, int n, float& v) { u_s[m * uf + n] = v; });
   zero(acc);
-  gemm<kMma, false, true>(acc, kQ, NP, P, dyt, gh);
-  for_each<kMma>(acc, kQ, NP, [&](int m, int, float& v) { v *= ecum_s[m]; });
-  gemm<kMma, false, true>(acc, kQ, NP, kQ, s2, bt);
+  gemm<false, true>(acc, kQ, NP, P, dyt, gh);
+  for_each(acc, kQ, NP, [&](int m, int, float& v) { v *= ecum_s[m]; });
+  gemm<false, true>(acc, kQ, NP, kQ, s2, bt);
   part += (long long)a.B * a.S * part_row;
-  for_each<kMma>(acc, kQ, NP, [&](int m, int n, float& v) {
+  for_each(acc, kQ, NP, [&](int m, int n, float& v) {
     if (m < valid && n < N) part[m * part_row + n] = v;
   });
   __syncthreads();
-  if (tid < kQ) {
-    float r = 0.f;
-    for (int p = 0; p < P; ++p) r += dyt.get(tid, p) * u_s[tid * uf + p];
-    inter_s[tid] = ecum_s[tid] * r;
+  {
+    const double r = row_sum(0, P, [&](int p) {
+      return static_cast<double>(dyt.get(row, p) * u_s[row * uf + p]);
+    });
+    if (tid % 4 == 0) inter_s[row] = ecum_s[row] * r;
   }
   __syncthreads();
 
   // dcum, its suffix sums da within the chunk, ddt, and the chunk's sums.
+  // dt_t x_t·U_t is colt_t, its part within the chunk, plus dt_t xug_t, so
+  // dcum takes colt_t and dt_t xug_t where they arise and the chunk's end
+  // adds Σ dt xug: no term is the small difference of two large sums.
   if (tid < 32) {
     const int lane = tid;
     double gsum = 0.0;
@@ -765,9 +586,9 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_grads_kernel(BwdArgs a) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int t = 2 * lane + e;
-      const double dxu = static_cast<double>(dt_s[t]) * xu_s[t];
-      dcum[e] = static_cast<double>(rowt_s[t]) + inter_s[t] - dxu;
-      side += dxu - colt_s[t];
+      const double dxg = static_cast<double>(dt_s[t]) * xug_s[t];
+      dcum[e] = rowt_s[t] - colt_s[t] + inter_s[t] - dxg;
+      side += dxg;
       sdyx += dyx_s[t];
     }
     side = warp_sum(side);
@@ -803,7 +624,6 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_grads_kernel(BwdArgs a) {
 
 // Pass 4: dB and dC over the heads, one thread per (batch row, position,
 // n); the last block takes dA and dD over (batch row, chunk).
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce_kernel(BwdArgs a) {
   if (blockIdx.x == gridDim.x - 1) {
     const long long stride = (long long)a.B * a.nc * a.H;
@@ -829,33 +649,32 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce_kernel(BwdArgs a) {
     sb += pb[(long long)h * a.N];
     sc += pc[(long long)h * a.N];
   }
-  static_cast<T*>(a.dBm)[e] = from_float<T>(sb);
-  static_cast<T*>(a.dCm)[e] = from_float<T>(sc);
+  static_cast<float*>(a.dBm)[e] = sb;
+  static_cast<float*>(a.dCm)[e] = sc;
 }
 
-template <typename T>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem1 = states_smem<T>(a.P, a.NP);
-  const size_t smem3 = grads_smem<T>(a.P, a.NP);
-  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_states_kernel<T>,
+  const size_t smem1 = states_smem(a.P, a.NP);
+  const size_t smem3 = grads_smem(a.P, a.NP);
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_states_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_bwd_grads_kernel<T>,
+  err = cudaFuncSetAttribute(ssd_bwd_grads_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem3);
   if (err != cudaSuccess) return err;
   const dim3 chunks(a.nc, a.H, a.B);
-  ssd_bwd_states_kernel<T><<<chunks, kThreads, smem1, stream>>>(a);
+  ssd_bwd_states_kernel<<<chunks, kThreads, smem1, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ssd_bwd_passing_kernel<<<dim3((a.P * a.N / 4 + kThreads - 1) / kThreads, a.H, a.B), kThreads,
                            0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_grads_kernel<T><<<chunks, kThreads, smem3, stream>>>(a);
+  ssd_bwd_grads_kernel<<<chunks, kThreads, smem3, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long bsn = (long long)a.B * a.S * a.N;
-  ssd_bwd_reduce_kernel<T><<<(unsigned)((bsn + kThreads - 1) / kThreads + 1), kThreads, 0,
+  ssd_bwd_reduce_kernel<<<(unsigned)((bsn + kThreads - 1) / kThreads + 1), kThreads, 0,
                              stream>>>(a);
   return cudaGetLastError();
 }
@@ -863,14 +682,15 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 }  // namespace
 }  // namespace repro
 
-// dtype (of x, dy, B and C, and of dx, dB and dC): 0 = float32 (FMA),
-// 1 = bfloat16 (mma.sync).  dt, A, D, h0, dh_final, ddt, dA, dD, dh0 and the
-// scratch are float32; h0, dy, dh_final and dh0 may be null (dh0 is written
-// where it is not).  Strides are in elements; the last dimension of x, dt, B,
-// C and dy is contiguous; the outputs are contiguous.  Scratch: states (2, B,
-// H, ⌈S/64⌉, P, N), a_tot (B, H, ⌈S/64⌉), parts (2, B, S, H, N), ad (2, B,
-// ⌈S/64⌉, H).  P is 16, 32 or 64 and N at most 128.  Four launches on
-// `stream`; returns the CUDA error of the launches (0 on success).
+// dtype (of x, dy, B and C, and of dx, dB and dC): 0 = float32, the only
+// one this entry takes (bfloat16: repro_ssd_scan_bwd_sm90).  dt, A, D, h0,
+// dh_final, ddt, dA, dD, dh0 and the scratch are float32; h0, dy, dh_final
+// and dh0 may be null (dh0 is written where it is not).  Strides are in
+// elements; the last dimension of x, dt, B, C and dy is contiguous; the
+// outputs are contiguous.  Scratch: states (2, B, H, ⌈S/64⌉, P, N), a_tot
+// (B, H, ⌈S/64⌉), parts (2, B, S, H, N), ad (2, B, ⌈S/64⌉, H).  P is 16, 32
+// or 64 and N at most 128.  Four launches on `stream`; returns the CUDA
+// error of the launches (0 on success).
 extern "C" int repro_ssd_scan_bwd(
     const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
     const float* D, const float* h0, const void* dy, const float* dh_final, void* dx, float* ddt,
@@ -922,7 +742,6 @@ extern "C" int repro_ssd_scan_bwd(
   a.dy_ss = dy_ss;
   a.dy_sh = dy_sh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(repro::launch_bwd<float>(a, st));
-  if (dtype == 1) return static_cast<int>(repro::launch_bwd<__nv_bfloat16>(a, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return static_cast<int>(repro::launch_bwd(a, st));
+  return static_cast<int>(cudaErrorInvalidValue);  // bf16: ssd_scan_bwd_sm90.cu
 }

@@ -103,11 +103,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, h0=None, chunk: int = 64):
     return y.to(x.dtype), hstate
 
 
-def ssd_bwd_plain(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk: int = 64):
-    """The vector-Jacobian product of ``ssd_chunked`` written out in float32:
+def ssd_bwd_plain(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk: int = 64,
+                  work: torch.dtype = torch.float32):
+    """The vector-Jacobian product of ``ssd_chunked`` written out in float32
+    (or ``work``):
     (dx, ddt, dA, dBm, dCm, dD, dh0), each in its input's dtype (dh0 None
     without h0).  ``dy`` (the cotangent of y) and ``dh_final`` (of the final
-    state) may each be None (zero).
+    state) may each be None (zero).  ``work`` is the dtype it computes in
+    (float64 gives a yardstick for the float32 kernel).
 
     The chunked backward the kernel (``csrc/ssd_scan_bwd.cu``) computes, pass
     for pass.  With a = A·dt, cum the within-chunk cumsum of a, tot its last
@@ -127,22 +130,22 @@ def ssd_bwd_plain(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk: int = 64):
     """
     b, s, h, p = x.shape
     n = Bm.shape[-1]
-    f32 = torch.float32
-    dyf = torch.zeros((b, s, h, p), dtype=f32, device=x.device) if dy is None else dy.float()
+    f32 = work
+    dyf = torch.zeros((b, s, h, p), dtype=f32, device=x.device) if dy is None else dy.to(f32)
     if s % chunk:
         pad = chunk - s % chunk
         pad_s = lambda t, dims: F.pad(t, (0, 0) * dims + (0, pad))  # noqa: E731
         grads = ssd_bwd_plain(pad_s(x, 2), pad_s(dt, 1), A, pad_s(Bm, 1), pad_s(Cm, 1), D, h0,
-                              pad_s(dyf, 2), dh_final, chunk=chunk)
+                              pad_s(dyf, 2), dh_final, chunk=chunk, work=work)
         dx, ddt, dA, dB, dC, dD, dh0 = grads
         return dx[:, :s], ddt[:, :s], dA, dB[:, :s], dC[:, :s], dD, dh0
     c = s // chunk
-    xf = x.float().reshape(b, c, chunk, h, p)
-    dtf = dt.float().reshape(b, c, chunk, h)
-    Bf = Bm.float().reshape(b, c, chunk, n)
-    Cf = Cm.float().reshape(b, c, chunk, n)
+    xf = x.to(f32).reshape(b, c, chunk, h, p)
+    dtf = dt.to(f32).reshape(b, c, chunk, h)
+    Bf = Bm.to(f32).reshape(b, c, chunk, n)
+    Cf = Cm.to(f32).reshape(b, c, chunk, n)
     dyf = dyf.reshape(b, c, chunk, h, p)
-    Af = A.float()
+    Af = A.to(f32)
 
     a_cum = torch.cumsum((Af * dtf).movedim(-1, 2), dim=-1)          # (B,C,H,Q)
     a_tot = a_cum[..., -1]                                            # (B,C,H)
@@ -152,7 +155,7 @@ def ssd_bwd_plain(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk: int = 64):
 
     # Pass 1: the state entering each chunk.
     states = torch.einsum("bcqh,bcqh,bcqhp,bcqn->bchpn", decay_tail, dtf, xf, Bf)
-    hstate = torch.zeros((b, h, p, n), dtype=f32, device=x.device) if h0 is None else h0.float()
+    hstate = torch.zeros((b, h, p, n), dtype=f32, device=x.device) if h0 is None else h0.to(f32)
     h_prevs = []
     for ci in range(c):
         h_prevs.append(hstate)
@@ -162,7 +165,7 @@ def ssd_bwd_plain(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk: int = 64):
     # Pass 2: the state's cotangent leaving each chunk, backwards.
     local = torch.einsum("bcqh,bcqhp,bcqn->bchpn", decay_in, dyf, Cf)
     g = (torch.zeros((b, h, p, n), dtype=f32, device=x.device) if dh_final is None
-         else dh_final.float())
+         else dh_final.to(f32))
     g_next = [None] * c
     for ci in reversed(range(c)):
         g_next[ci] = g
@@ -177,7 +180,7 @@ def ssd_bwd_plain(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk: int = 64):
     T = CB[:, :, None] * K
     U = (torch.einsum("bchts,bcthp->bcshp", CB[:, :, None] * L, dyf)
          + decay_tail[..., None] * torch.einsum("bcsn,bchpn->bcshp", Bf, G))
-    dx = dtf[..., None] * U + D.float()[:, None] * dyf
+    dx = dtf[..., None] * U + D.to(f32)[:, None] * dyf
     xU = (xf * U).sum(-1)                                             # (B,C,Q,H)
     dB = (torch.einsum("bchts,bctn->bcsn", K, Cf)
           + torch.einsum("bcsh,bcshp,bchpn->bcsn", dtf * decay_tail, xf, G))

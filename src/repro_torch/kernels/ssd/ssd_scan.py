@@ -11,9 +11,11 @@ per 16 of a head's P columns, B and C through TMA, so x, B and C need
 16-byte aligned rows); float32 runs on the FMA pipes in three launches with
 the chunk states in device memory (``ssd_scan.cu``), since a bf16 split of
 float32 operands would not hold float32's tolerance.  The backward takes
-the same routes by dtype (bf16 ``mma.sync``, float32 FMA) in
-``BWD_KERNELS`` launches.  Each route launches its kernel or raises;
-neither falls back to the other or to the plain version.
+routes by dtype too, in the four launches ``bwd_plan`` lays out: bf16 on
+``wgmma`` and TMA with one block per (chunk, head group, batch row)
+(``ssd_scan_bwd_sm90.cu``, which also needs dy's rows 16-byte aligned),
+float32 on the FMA pipes (``ssd_scan_bwd.cu``).  Each route launches its
+kernel or raises; neither falls back to the other or to the plain version.
 
 On a CPU tensor the wrapper computes the plain version, ``ref.ssd_chunked``,
 with native autograd.  On the card a call that autograd records goes
@@ -34,8 +36,10 @@ calls reach ``SsdScanFn`` as any other call does.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -54,7 +58,8 @@ KERNEL_CHUNK = 64          # both kernels' own chunk; the function does not depe
 P_TILE = 16                # P columns per block of the tensor-core kernel
 
 ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
-_ENTRIES = {"mma": "repro_ssd_scan_sm90", "fma": "repro_ssd_scan", "bwd": "repro_ssd_scan_bwd"}
+_ENTRIES = {"mma": "repro_ssd_scan_sm90", "fma": "repro_ssd_scan", "bwd": "repro_ssd_scan_bwd",
+            "bwd_sm90": "repro_ssd_scan_bwd_sm90"}
 _ARGTYPES = {
     "mma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
            + [ctypes.c_void_p],
@@ -62,11 +67,9 @@ _ARGTYPES = {
            + [ctypes.c_void_p],
     "bwd": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
            + [ctypes.c_void_p],
+    "bwd_sm90": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
+                + [ctypes.c_void_p],
 }
-# The backward's device kernels a call: the chunks' parts of the states and
-# their cotangents, the passes over the chunks, each chunk's gradients, and
-# the sums over heads (dB, dC) and over rows and chunks (dA, dD).
-BWD_KERNELS = 4
 
 launches = 0
 bwd_launches = 0
@@ -141,12 +144,100 @@ def cost_backward(b: int, s: int, h: int, p: int, n: int, *, chunk: int, h0: boo
                 + (state if dh_final else 0))
 
 
-def bwd_scratch(b: int, s: int, h: int, p: int, n: int) -> tuple[tuple[int, ...], ...]:
-    """The float32 scratch a backward call allocates: the chunks' states and
-    their cotangents, each chunk's decay, each head's dB and dC, and each
-    chunk's parts of dA and dD."""
+# The bf16 backward: a state slot is P x N padded to 64 x 128 (float32 part,
+# or its bf16 hi + lo planes), the tile that its TMA copies and products
+# take whatever P and N are; the passes over (chunk, head group, batch row)
+# take the fewest groups that fill one wave of one block per SM, 132 being
+# the SM count of the H100 SXM (there, at 4 x 4096, one group of 32 heads
+# beat two of 16 by 7%; at 1 x 4096 three groups matched five).  The
+# threads of a float32 pass's block and of the last pass's.
+BWD_SLOT = 64 * 128
+BWD_MIN_BLOCKS = 132
+_BWD_THREADS = 256
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """One backward call's launches, as the C entries make them:
+    ``kernels`` in launch order with their ``grids`` (x-major), the heads a
+    block of the chunk-state and gradient passes takes (``group``; the
+    float32 route's blocks take one) and the float32 ``scratch`` the
+    wrapper allocates, in the C entry's order."""
+    route: str
+    b: int
+    s: int
+    h: int
+    p: int
+    n: int
+    group: int
+    kernels: tuple[str, ...]
+    grids: tuple[tuple[int, int, int], ...]
+    scratch: tuple[tuple[int, ...], ...]
+
+    @property
+    def groups(self) -> int:
+        return -(-self.h // self.group)
+
+    @property
+    def scratch_bytes(self) -> int:
+        return sum(4 * math.prod(shape) for shape in self.scratch)
+
+
+def bwd_group(b: int, s: int, h: int) -> int:
+    """The heads a bf16 backward block takes: as many as the fewest groups
+    that give ``BWD_MIN_BLOCKS`` blocks of (chunk, group, batch row) allow
+    (132, one block on each SM of an H100 SXM; one group per head where
+    even that falls short).  Larger groups share
+    more of each block's B, C and C·Bᵀ and need no group scratch; more
+    blocks fill more of the card."""
     nc = -(-s // KERNEL_CHUNK)
-    return (2, b, h, nc, p, n), (b, h, nc), (2, b, s, h, n), (2, b, nc, h)
+    groups = min(h, -(-BWD_MIN_BLOCKS // (nc * b)))
+    return -(-h // groups)
+
+
+def bwd_plan(b: int, s: int, h: int, p: int, n: int, dtype: torch.dtype) -> BwdPlan:
+    """The four launches of one ``ssd_scan_bwd`` call.  bf16: the chunk
+    states' parts, one block per (chunk, head group, batch row); the walk
+    over the chunks writing H[c] and G[c] as bf16 hi + lo planes, a thread
+    per 8 values of a (head, batch row)'s 64 x 128 state; the gradients,
+    one block per (chunk, head group, batch row); dA, dD and (several
+    groups) the groups' dB and dC summed.  A block takes ``bwd_group``
+    heads, the last group what is left.  float32: per (chunk, head, batch
+    row) for the parts and the gradients, per 1024 (p, n) of a (head, batch
+    row) for the walk, and dB, dC over the heads with dA, dD; its scratch
+    holds each head's dB and dC."""
+    r = route(dtype)
+    nc = -(-s // KERNEL_CHUNK)
+    bsn_blocks = -(-(b * s * n) // _BWD_THREADS)
+    if r == "fma":
+        return BwdPlan(r, b, s, h, p, n, 1,
+                       ("ssd_bwd_states_kernel", "ssd_bwd_passing_kernel", "ssd_bwd_grads_kernel",
+                        "ssd_bwd_reduce_kernel"),
+                       ((nc, h, b), (-(-(p * n // 4) // _BWD_THREADS), h, b), (nc, h, b),
+                        (bsn_blocks + 1, 1, 1)),
+                       ((2, b, h, nc, p, n), (b, h, nc), (2, b, s, h, n), (2, b, nc, h)))
+    g = bwd_group(b, s, h)
+    groups = -(-h // g)
+    scratch = ((2, b, h, nc, BWD_SLOT), (b, h, nc), (2, b, nc, h))
+    if groups > 1:
+        scratch += ((groups, 2, b, s, n),)
+    return BwdPlan(r, b, s, h, p, n, g,
+                   ("ssd_bwd_states_sm90_kernel", "ssd_bwd_passing_sm90_kernel",
+                    "ssd_bwd_grads_sm90_kernel", "ssd_bwd_reduce_sm90_kernel"),
+                   ((nc, groups, b), (BWD_SLOT // 8 // _BWD_THREADS, h, b), (nc, groups, b),
+                    (bsn_blocks + 1 if groups > 1 else 1, 1, 1)),
+                   scratch)
+
+
+def grads_blocks(plan: BwdPlan) -> np.ndarray:
+    """The (chunk, head, batch row) each block of the gradient pass takes,
+    one row per pair, as the kernel decodes its block index: block (x, y,
+    z) takes chunk x of batch row z and the heads y·group .. of its group,
+    the last group what is left."""
+    nc, groups, b = plan.grids[2]
+    rows = [(c, hd, z) for z in range(b) for y in range(groups) for c in range(nc)
+            for hd in range(y * plan.group, min(plan.h, (y + 1) * plan.group))]
+    return np.array(rows, dtype=np.int64).reshape(-1, 3)
 
 
 class SsdScanFn(torch.autograd.Function):
@@ -351,6 +442,11 @@ def _check_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk, device_type: str) -
         raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} on {dy.device} with "
                          f"strides {dy.stride()}; want x's shape {tuple(x.shape)} and dtype "
                          f"{x.dtype} on {x.device}, last dim contiguous")
+    if dy is not None and route(x.dtype) == "mma":
+        strides = dy.stride()[1:-1] + (dy.stride(0),) * (b > 1)
+        if dy.data_ptr() % 16 or any(st % 8 for st in strides):
+            raise ValueError(f"ssd_scan_bwd: bf16 dy at offset {dy.data_ptr() % 16} with strides "
+                             f"{dy.stride()}: the kernel needs 16-byte aligned rows")
     if dh_final is not None and (dh_final.shape != (b, h, p, Bm.shape[-1])
                                  or dh_final.device != x.device
                                  or not dh_final.is_contiguous()):
@@ -366,9 +462,15 @@ def _grads_like(x, dt, A, Bm, Cm, D, h0):
                  for t in (x, dt, A, Bm, Cm, D, h0))
 
 
+def _plan_of(x, Bm) -> BwdPlan:
+    b, s, h, p = x.shape
+    return bwd_plan(b, s, h, p, Bm.shape[-1], x.dtype)
+
+
 def _meta_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, *, chunk: int):
-    """The backward's meta route: the gradients and the scratch allocated,
-    and ``cost_backward`` counted as one ``ssd_scan_bwd`` call."""
+    """The backward's meta route: the gradients and the plan's scratch
+    allocated, and ``cost_backward`` counted as one ``ssd_scan_bwd``
+    call."""
     _check_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk, "meta")
     b, s, h, p = x.shape
     n = Bm.shape[-1]
@@ -377,7 +479,7 @@ def _meta_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, *, chunk: int):
     grads = _grads_like(x, dt, A, Bm, Cm, D, h0)
     # The scratch, live beside the gradients during the launch.
     scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
-               for shape in bwd_scratch(b, s, h, p, n)]
+               for shape in _plan_of(x, Bm).scratch]
     del scratch
     return grads
 
@@ -386,22 +488,31 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, *, chunk: int = 64):
     """(dx, ddt, dA, dBm, dCm, dD, dh0) of ``ssd(x, dt, A, Bm, Cm, D, h0)``
     from the cotangents of y (``dy``, x's dtype) and of the final state
     (``dh_final``, float32), either of which may be None (zero): one call of
-    the backward kernel (``BWD_KERNELS`` launches) for ``route(x.dtype)``.
-    dt, A, D and h0 are float32 (``ssd`` casts them).  Raises on what the
-    kernel does not take."""
+    the backward kernel for ``route(x.dtype)``, its launches and scratch as
+    ``bwd_plan`` lays them out.  dt, A, D and h0 are float32 (``ssd`` casts
+    them).  Raises on what the kernel does not take."""
     _check_bwd(x, dt, A, Bm, Cm, D, h0, dy, dh_final, chunk, "cuda")
     b, s, h, p = x.shape
-    n = Bm.shape[-1]
+    pl = _plan_of(x, Bm)
     grads = _grads_like(x, dt, A, Bm, Cm, D, h0)
-    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
-               for shape in bwd_scratch(b, s, h, p, n)]
-    ptrs = [None if t is None else t.data_ptr()
-            for t in (x, dt, A, Bm, Cm, D, h0, dy, dh_final, *grads, *scratch)]
-    dy_strides = (0, 0, 0) if dy is None else dy.stride()[:3]
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device) for shape in pl.scratch]
+    strides = (*x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2])
     with torch.cuda.device(x.device):
-        err = _kernel("bwd")(*ptrs, DTYPE_CODES[x.dtype], b, s, h, p, n, *x.stride()[:3],
-                             *dt.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2], *dy_strides,
-                             stream_handle(x))
+        if pl.route == "mma":
+            if dy is None:  # a zero cotangent, for the tensor map
+                dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+            ptrs = [None if t is None else t.data_ptr()
+                    for t in (x, dt, A, Bm, Cm, D, h0, dy, dh_final, *grads, *scratch)]
+            ptrs += [None] * (20 - len(ptrs))  # no group scratch where one group covers H
+            err = _kernel("bwd_sm90")(*ptrs, b, s, h, p, Bm.shape[-1], pl.group,
+                                      math.prod(pl.grids[2]), pl.grids[3][0], *strides,
+                                      *dy.stride()[:3], stream_handle(x))
+        else:
+            ptrs = [None if t is None else t.data_ptr()
+                    for t in (x, dt, A, Bm, Cm, D, h0, dy, dh_final, *grads, *scratch)]
+            dy_strides = (0, 0, 0) if dy is None else dy.stride()[:3]
+            err = _kernel("bwd")(*ptrs, DTYPE_CODES[x.dtype], b, s, h, p, Bm.shape[-1], *strides,
+                                 *dy_strides, stream_handle(x))
     raise_on_error("ssd_scan_bwd", err)
     global bwd_launches
     bwd_launches += 1

@@ -391,18 +391,25 @@ def test_ssd_kernel_reads_strided_views(dtype, card):
 
 
 def test_ssd_bf16_is_one_launch_per_call(card):
-    """One device kernel per bf16 call: no scratch pass, no state walk."""
+    """One device kernel per bf16 call: no scratch pass, no state walk.  On
+    the card the profiler has lost all of a session's device events after
+    an earlier session in the same process: a session that shows none is
+    taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     x, dt, A, Bm, Cm, D, _ = _ssd_inputs(card, 1, 512, 32, 64, 128, torch.bfloat16)
     assert ssd_scan.plan(1, 512, 32, 64, 128, torch.bfloat16).scratch == ()
     ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=128)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=128)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ssd_scan.ssd(x, dt, A, Bm, Cm, D, chunk=128)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     assert len(names) == 3 and all("ssd_sm90_kernel" in nm for nm in names), names
 
 
@@ -1080,6 +1087,76 @@ def test_ssd_backward_kernel_matches_plain(case, dtype, card):
     assert all(g <= t for g, t in zip(gaps, tols)), (dict(zip(SSD_NAMES, gaps)), tols)
 
 
+def _strided(t, dim):
+    """``t`` as a view into a tensor twice as long on ``dim``: every other
+    row there (dim 1, the sequence) or its first half (the last dim)."""
+    shape = list(t.shape)
+    shape[dim] *= 2
+    wide = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    view = wide[:, ::2] if dim == 1 else wide[..., :t.shape[-1]]
+    view.copy_(t)
+    return view
+
+
+# (b, s, h, p, n, h0, group, dh_final, strided): the heads a bf16 block
+# takes as the plan picks them at that shape (``ssd_scan.bwd_group``): one
+# each, tail groups (5 heads in groups of 2, 8 in groups of 3) and one
+# group of every head; P 16 and 32, N 16 and 72, ragged lengths, the final
+# state's cotangent given and absent, and x, dt, B, C and dy as strided
+# views.  The float32 route takes one head a block.
+SSD_GROUP_CASES = [
+    (2, 130, 3, 64, 128, False, 1, True, False),
+    (1, 2800, 5, 32, 72, True, 2, False, False),
+    (2, 4224, 4, 16, 16, False, 4, True, False),
+    (1, 77, 6, 64, 16, True, 1, True, True),
+    (2, 4200, 3, 32, 72, False, 3, False, True),
+    (1, 2900, 8, 16, 128, True, 3, True, False),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", SSD_GROUP_CASES)
+def test_ssd_backward_kernel_at_groups_and_widths(case, dtype, card):
+    """``ssd_scan_bwd`` at the head groups, widths, lengths and strides of
+    ``SSD_GROUP_CASES`` against ``_ssd_grad_reference``; a second call
+    gives the same bits."""
+    b, s, h, p, n, with_h0, group, with_dh, strided = case
+    chunk = 64
+    inputs = list(_ssd_inputs(card, b, s, h, p, n, dtype, with_h0))
+    dy = _randn(card, (b, s, h, p), dtype)
+    dh = torch.randn((b, h, p, n), generator=card, device="cuda") if with_dh else None
+    args = list(inputs)
+    if strided:
+        args[0], args[3], args[4] = (_strided(inputs[i], -1) for i in (0, 3, 4))
+        args[1] = _strided(inputs[1], 1)
+        dy_in = _strided(dy, 1)
+        assert not args[0].is_contiguous() and not args[1].is_contiguous()
+    else:
+        dy_in = dy
+    if dtype == torch.bfloat16:
+        plan = ssd_scan.bwd_plan(b, s, h, p, n, dtype)
+        assert plan.group == group and plan.groups == -(-h // group)
+    got = ssd_scan.ssd_scan_bwd(*args, dy_in, dh, chunk=chunk)
+    again = ssd_scan.ssd_scan_bwd(*args, dy_in, dh, chunk=chunk)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+    assert all(g is None or (g.dtype == t.dtype and g.shape == t.shape)
+               for g, t in zip(got, inputs))
+    plain = None
+    if dtype == torch.float32:
+        # Against the plain version computed in float64 (the float32 plain
+        # version's own gap to it is printed beside a failure).
+        want = [g for g in ssd_ref.ssd_bwd_plain(*inputs, dy, dh, chunk=chunk,
+                                                 work=torch.float64) if g is not None]
+        tols = [SSD_GRAD_F32_RTOL] * len(want)
+        plain = [_rel_gap(g, w) for g, w in zip(
+            [g for g in ssd_ref.ssd_bwd_plain(*inputs, dy, dh, chunk=chunk) if g is not None],
+            want)]
+    else:
+        want, tols = _ssd_grad_reference(inputs, dy, dh, dtype, chunk)
+    gaps = [_rel_gap(g, w) for g, w in zip([g for g in got if g is not None], want)]
+    assert all(g <= t for g, t in zip(gaps, tols)), (dict(zip(SSD_NAMES, gaps)), tols, plain)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("with_h0", [False, True], ids=["no_h0", "h0"])
 def test_ssd_gradients_through_the_kernel(with_h0, dtype, card):
@@ -1118,20 +1195,20 @@ def test_ssd_gradients_through_the_kernel(with_h0, dtype, card):
 
 
 def test_ssd_backward_is_its_documented_device_kernels(card):
-    """Each backward call is ``BWD_KERNELS`` device kernels of
-    ``csrc/ssd_scan_bwd.cu``, in the order its launches run (chunk states,
-    passing walk, gradients, head sums), in both dtypes: the last three of
-    four calls in one profiler session.  The first call is not counted: on
-    the card the profiler has lost a session's first device events after
-    earlier sessions in the same process (the training step's profile
-    counts every launch).  A session that does not show the pattern is
-    taken again, up to three times."""
+    """Each backward call is the device kernels ``bwd_plan`` lays out for
+    its dtype (``csrc/ssd_scan_bwd_sm90.cu`` for bf16, ``csrc/ssd_scan_bwd.cu``
+    for float32), in the plan's order (chunk states, walk, gradients, last
+    sums): the last three of four calls in one profiler session.  The first
+    call is not counted: on the card the profiler has lost a session's
+    first device events after earlier sessions in the same process (the
+    training step's profile counts every launch).  A session that does not
+    show the pattern is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    order = ("ssd_bwd_states", "ssd_bwd_passing", "ssd_bwd_grads", "ssd_bwd_reduce")
-    assert len(order) == ssd_scan.BWD_KERNELS
     calls = 3
     for dtype in DTYPES:
+        order = ssd_scan.bwd_plan(2, 300, 32, 64, 128, dtype).kernels
+        assert len(order) == 4
         inputs = _ssd_inputs(card, 2, 300, 32, 64, 128, dtype)
         dy = _randn(card, (2, 300, 32, 64), dtype)
         ssd_scan.ssd_scan_bwd(*inputs, dy, None)
@@ -1152,6 +1229,42 @@ def test_ssd_backward_is_its_documented_device_kernels(card):
         assert kinds[-calls * len(order):] == list(order) * calls, names
 
 
+@pytest.mark.parametrize("group", [3, 32])
+def test_ssd_backward_call_runs_the_plans_kernels_in_order(group, card):
+    """One bf16 call at a length where the plan takes a tail group (1 x 768:
+    32 heads in groups of 3) and where it takes one group of all 32 heads
+    (1 x 8448): the plan's four device kernels, in order and nothing else
+    (the second of two calls in a profiler session), and the gradients held
+    as ``_ssd_grad_reference`` says."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s, h, p, n = 1, {3: 768, 32: 8448}[group], 32, 64, 128
+    plan = ssd_scan.bwd_plan(b, s, h, p, n, torch.bfloat16)
+    assert plan.group == group
+    order = plan.kernels
+    inputs = _ssd_inputs(card, b, s, h, p, n, torch.bfloat16)
+    dy = _randn(card, (b, s, h, p), torch.bfloat16)
+    got = ssd_scan.ssd_scan_bwd(*inputs, dy, None)
+    torch.cuda.synchronize()
+    # Two calls a session, the first uncounted (the profiler can lose a
+    # session's first device events after earlier sessions in the process).
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                ssd_scan.ssd_scan_bwd(*inputs, dy, None)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted((e for e in prof.events()
+                                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                                        key=lambda e: e.time_range.start)]
+        kinds = [next((k for k in order if k in nm), nm) for nm in names]
+        if len(names) <= 2 * len(order) and kinds[-len(order):] == list(order):
+            break
+    assert len(names) <= 2 * len(order) and kinds[-len(order):] == list(order), names
+    want, tols = _ssd_grad_reference(inputs, dy, None, torch.bfloat16, 64)
+    gaps = [_rel_gap(g, w) for g, w in zip([g for g in got if g is not None], want)]
+    assert all(g <= t for g, t in zip(gaps, tols)), (dict(zip(SSD_NAMES, gaps)), tols)
+
+
 def test_ssd_backward_refuses_what_the_kernel_does_not_take(card):
     """A bf16 operand that ``_check`` refuses raises; nothing runs the plain
     version instead."""
@@ -1165,6 +1278,9 @@ def test_ssd_backward_refuses_what_the_kernel_does_not_take(card):
         ssd_scan.ssd_scan_bwd(shifted, dt, A, Bm, Cm, D, None, dy, None)
     with pytest.raises(ValueError, match="dy"):
         ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy.float(), None)
+    shifted_dy = torch.empty(dy.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(dy.shape)
+    with pytest.raises(ValueError, match="dy .* 16-byte aligned"):
+        ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, shifted_dy, None)
     with pytest.raises(ValueError, match="dh_final"):
         ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy,
                               torch.zeros((b, h, p, n + 1), device="cuda"))

@@ -5,25 +5,20 @@
         '{"base": [], "two_stages": [["STAGES = D == 256 ? 2 : 3", "STAGES = 2"]]}'
 
 Each variant is ``csrc/flash_attention_bwd.cu`` with the given text
-replacements (each must occur), or ``{"source": path, "replace": [...]}``
-to start from another copy of the file (an earlier revision, say), built
-with the port's nvcc flags into a library of its own beside the other
-sources (under ``build/variants/``).
-Every variant's backward runs at qwen2-vl-2b's 2 x 4096 (12 heads on 2,
+replacements, or a dict as ``kernel_variants.build`` takes it, which
+builds it into a library of its own.  Every variant's backward runs at qwen2-vl-2b's 2 x 4096 (12 heads on 2,
 D 128, causal), recurrentgemma-9b's 1 x 4096 (16 on 1, D 256, window
 2048), minitron-4b's 1 x 4096 (24 on 8) and 2 x 2048 at 16 heads of 64, in
 bf16, in the order given and then reversed; each line is the median of 10
 calls (CUDA events, L2 flushed before each) and whether the variant's
 gradients equal the first variant's bit for bit.  ptxas' registers and
-spills are printed per variant.  Needs the card and nvcc.
+spills, and SASS counts, are printed per variant.  Needs the card and nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import json
-import re
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -32,6 +27,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+import kernel_variants  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import flash_attention as fa  # noqa: E402
 
@@ -40,48 +36,8 @@ CASES = [(2, 4096, 4096, 12, 2, 128, True, 0), (1, 4096, 4096, 16, 1, 256, True,
          (1, 4096, 4096, 24, 8, 128, True, 0), (2, 2048, 2048, 16, 16, 64, True, 0)]
 
 
-def build(variants: dict[str, list]) -> dict[str, Path]:
-    out = _build.build_root().parent / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc, flags = _build.nvcc(), list(_build.NVCC_FLAGS)
-    others = [s for s in _build.SOURCES if s != SOURCE]
-    jobs = {s.stem: (s, out / f"{s.stem}.o") for s in others}
-    for name, spec in variants.items():
-        if isinstance(spec, dict):
-            text, reps = (ROOT / spec["source"]).read_text(), spec.get("replace", [])
-        else:
-            text, reps = SOURCE.read_text(), spec
-        for old, new in reps:
-            if old not in text:
-                raise ValueError(f"{name}: {old!r} is not in {SOURCE.name}")
-            text = text.replace(old, new)
-        src = out / f"{name}.cu"
-        src.write_text(text)
-        jobs[f"v:{name}"] = (src, out / f"{name}.o")
-    procs = {k: subprocess.Popen([nvcc, *flags, "-I", str(SOURCE.parent), "-c", str(s), "-o",
-                                  str(o)], text=True, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT)
-             for k, (s, o) in jobs.items()}
-    logs = {k: p.communicate()[0] for k, p in procs.items()}
-    for name in variants:
-        print(f"== {name}")
-        kernel = None
-        for line in logs[f"v:{name}"].splitlines():
-            m = re.search(r"Function properties for \S*?(\w+_kernel)I?L?i?(\d*)", line)
-            if m:
-                kernel = f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
-            elif kernel and ("spill" in line or "registers" in line):
-                print(f"  {kernel}: {line.strip()}")
-    bad = [k for k, p in procs.items() if p.returncode]
-    if bad:
-        raise RuntimeError("\n".join(logs[k] for k in bad))
-    libs = {}
-    for name in variants:
-        libs[name] = out / f"lib{name}.so"
-        subprocess.run([nvcc, "-shared", *(str(o) for k, (_, o) in jobs.items()
-                                           if not k.startswith("v:")),
-                        str(out / f"{name}.o"), "-o", str(libs[name])], check=True)
-    return libs
+def build(variants: dict) -> dict[str, Path]:
+    return kernel_variants.build(SOURCE, variants, r"(\w+_kernel)I?L?i?(\d*)")
 
 
 def time_ms(fn, flush, iters: int = 10) -> float:
